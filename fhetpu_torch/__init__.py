@@ -7,7 +7,8 @@ this package is held against: the same parameters and input ciphertexts give
 bit-identical uint32 RNS residues, and the ciphertext stream files of either
 package are read by the other's clients and servers unchanged.
 
-This package never imports JAX.  From ``fhetpu`` it shares only the modules
-that import without JAX: ``bfv.encoder``, ``codec.jpeg``, ``io.images``,
-``core.primes`` and ``native`` (the host C++ NTT).
+This package imports neither JAX nor anything of ``fhetpu``: the JAX-free
+modules it needs (``core.primes``, ``bfv.encoder``, ``bfv.golden``,
+``codec.jpeg``, ``io.images`` and ``native``, the host C++ NTT) are its own
+copies, which the tests hold equal to the originals.
 """

@@ -5,9 +5,8 @@ chain leaves a safety margin."""
 
 from __future__ import annotations
 
-from fhetpu.bfv.encoder import FractionalEncoder
-
 from . import noise
+from .encoder import FractionalEncoder
 from .params import BfvParams
 
 SUPPORTED_N = (1024, 2048, 4096, 8192, 16384, 32768)

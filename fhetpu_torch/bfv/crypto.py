@@ -18,8 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from fhetpu import native
-
+from .. import native
 from ..core import modops, ntt
 from .params import BfvParams, MAX_ERROR_MULT
 

@@ -21,11 +21,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fhetpu.bfv.encoder import FractionalEncoder
-
 from ..convert import server_arrays, server_state_from_numpy
 from ..core import modops, ntt
 from .crypto import centered_lift_plain
+from .encoder import FractionalEncoder
 from .params import BfvParams
 
 

@@ -22,9 +22,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from fhetpu.core.primes import default_aux_modulus, default_coeff_modulus_128
-
 from ..core import modops, ntt
+from ..core.primes import default_aux_modulus, default_coeff_modulus_128
 
 DEFAULT_PLAIN_MODULUS = 1 << 14  # fhe_image.h:26
 DEFAULT_POLY_DEGREE = 8192  # fhe_image.h:27 (named COEFF_MODULUS there)

@@ -20,12 +20,10 @@ import sys
 
 import numpy as np
 
-from fhetpu.codec import jpeg as jpeg_codec
-from fhetpu.io import images
-
 from ..bfv.crypto import Decryptor, Encryptor, KeyGenerator, SecretKey
+from ..codec import jpeg as jpeg_codec
 from ..core import ntt as nttmod
-from ..io import serial
+from ..io import images, serial
 from .common import (OpTimer, adopt_stream_params, auto_select_n, base_parser,
                      make_encoder, make_params)
 

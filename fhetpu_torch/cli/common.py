@@ -14,8 +14,7 @@ import time
 
 import torch
 
-from fhetpu.bfv.encoder import FractionalEncoder
-
+from ..bfv.encoder import FractionalEncoder
 from ..bfv.params import DEFAULT_PLAIN_MODULUS, DEFAULT_POLY_DEGREE, BfvParams
 
 N_NUMBER_COEFFS = 100  # fhe_image.h:24

@@ -19,10 +19,9 @@ import sys
 import numpy as np
 import torch
 
-from fhetpu.codec.jpeg import ZIGZAG, build_quant_tables
-
 from ..bfv import noise
 from ..bfv.evaluator import Evaluator
+from ..codec.jpeg import ZIGZAG, build_quant_tables
 from ..io import serial
 from ..pipelines.jpeg_encode import server_compute_fn
 from .common import (OpTimer, adopt_stream_params, base_parser, make_encoder,

@@ -2,8 +2,9 @@
 
 The sources have a plain C interface: each entry point takes raw device
 pointers and a ``cudaStream_t`` and returns the launch's ``cudaError_t``.
-They are compiled with plain ``nvcc`` into one shared library at first use,
-without PyTorch's headers (seconds instead of minutes), and loaded with
+They are compiled with plain ``nvcc`` at first use, without PyTorch's
+headers (seconds instead of minutes): one ``nvcc`` process per source, all
+started together, then one link into a shared library, loaded with
 ``ctypes``.  The library lands in ``fhetpu_torch/build/`` and is rebuilt
 when any source is newer than it.
 
@@ -24,8 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libfhetpu_torch_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -66,14 +67,36 @@ def build() -> str:
     if not _stale():
         return LIB_PATH
     nvcc = _nvcc()
-    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see a torn file
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", src, "-o", obj]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True)))
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    try:
+        errors = []
+        for _, cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+        if errors:
+            raise KernelBuildError("\n".join(errors))
+        cmd = [nvcc, *GENCODE, "-shared", "-o", tmp] + [obj for obj, _, _ in jobs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}")
+        os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see a torn file
+    finally:
+        for obj, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     return LIB_PATH
 
 

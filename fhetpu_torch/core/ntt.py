@@ -2,7 +2,7 @@
 
 The host half is ``fhetpu/core/ntt.py`` without JAX: the same twiddle
 tables (``NttTables``), the same NumPy transforms and the same native C++
-fast path through ``fhetpu.native``.  The formulation is unchanged:
+fast path through the package's own copy, ``fhetpu_torch.native``.  The formulation is unchanged:
 
 * forward: Cooley-Tukey butterflies, natural order in -> bit-reversed out;
 * inverse: Gentleman-Sande, bit-reversed in -> natural out, with the final
@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from . import modops, ntt_kernel
 
 
@@ -173,7 +174,7 @@ def _intt_impl(x: np.ndarray, tables: NttTables) -> np.ndarray:
 
 def np_ntt(x: np.ndarray, tables: NttTables) -> np.ndarray:
     """Host forward NTT; uses the native C++ kernels when available
-    (fhetpu/native/fastntt.cpp), falling back to vectorized NumPy."""
+    (fhetpu_torch/native/fastntt.cpp), falling back to vectorized NumPy."""
     x = np.ascontiguousarray(x, dtype=np.uint32)
     out = _native_ntt(x, tables, forward=True)
     if out is not None:
@@ -195,7 +196,6 @@ def np_intt_scaled(x: np.ndarray, tables: NttTables,
     scaling pass: returns INTT(x) * scale mod p at zero extra passes.
     Used by the decrypt fast path to fold qhat_inv (BFV CRT decode) into
     the transform.  scale_u32: uint32 [L]."""
-    from fhetpu import native
 
     x = np.ascontiguousarray(x, dtype=np.uint32)
     L, n = len(tables.primes), tables.n
@@ -231,7 +231,6 @@ def np_intt_scaled(x: np.ndarray, tables: NttTables,
 def np_pointwise_mulmod(a: np.ndarray, b: np.ndarray, tables: NttTables) -> np.ndarray:
     """Host pointwise a*b mod p over [..., L, n] with b either [..., L, n]
     (matching) or [L, n] (broadcast); native threaded kernel when available."""
-    from fhetpu import native
 
     L, n = len(tables.primes), tables.n
     nlib = native.lib()
@@ -257,7 +256,6 @@ def np_pointwise_mulmod(a: np.ndarray, b: np.ndarray, tables: NttTables) -> np.n
 
 
 def _native_ntt(x: np.ndarray, tables: NttTables, forward: bool):
-    from fhetpu import native
 
     L = len(tables.primes)
     if x.shape[-2] != L or x.shape[-1] != tables.n:

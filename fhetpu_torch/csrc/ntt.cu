@@ -14,11 +14,11 @@
 // the host and TPU transforms.
 //
 // What bounds it on an H100: the data moves once (4n bytes in and out per
-// polynomial), but each of the log2(n) stages does n/2 butterflies of about
-// 15 integer instructions (a Shoup product, an add and a sub mod p, index
-// math), so at n=4096 the kernel issues ~11 integer instructions per HBM
-// byte, above the card's ~5 (int32 issue rate over 3.35 TB/s): integer issue
-// and shared-memory traffic bound it rather than HBM.  The design keeps the whole
+// polynomial).  The fewest integer operations that give these bits (a lazy
+// Harvey butterfly of 7: a lazy Shoup product, two adds and one conditional
+// subtraction, over log2(n) stages of n/2) take about 0.55 of the HBM time
+// at n=4096, so HBM bounds it; this kernel's canonical butterflies and index
+// math issue more, and shared-memory traffic adds to them.  The design keeps the whole
 // polynomial in shared memory for all stages (one HBM read and one write),
 // and reads the twiddles of its limb from the L2-resident tables.  One
 // polynomial is 4n bytes: 64 KB at n=16384, above the 48 KB a kernel gets

@@ -5,7 +5,7 @@ A batch of blocks is one ciphertext tensor ``[nb, 3, 64, 2, L, n]``
 (block, RGB channel, coefficient slot, ciphertext component, limb, ring
 coefficient).  The network functions are op-for-op the reference's (same
 constants, same order), and they are duck-typed over the evaluator, so they
-run unchanged against ``fhetpu.bfv.golden.GoldenEvaluator`` as the exact
+run unchanged against ``bfv.golden.GoldenEvaluator`` as the exact
 plaintext oracle:
  * rgb_to_ycc:   fhe_image.h:307-325
  * dct8x8:       fhe_image.h:192-288 (AAN network, row pass then col pass,
@@ -23,6 +23,7 @@ import torch
 
 from ..bfv.evaluator import Ct, Evaluator
 from ..core import modops
+from ..core.dct_kernel import dct8x8_kernel
 from ..core.server_kernel import server_ycc_dct_fused
 
 # AAN rotation constants, exactly as multiplied in the reference network
@@ -137,6 +138,7 @@ def server_compute_fn(
     quant: Optional[np.ndarray] = None,
     input_ntt: bool = False,
     output_ntt: bool = False,
+    fused_lazy: bool = False,
 ):
     """The server op: uint32 [nb, 3, 64, 2, L, n] -> same shape, on the
     tensor's device.
@@ -147,25 +149,26 @@ def server_compute_fn(
 
     With quantize off (the reference's default) the op is the forward NTT
     kernel, the fused YCC+DCT kernel and the inverse NTT kernel -- or their
-    plain versions for a CPU tensor.  With quantize on it runs the
-    evaluator's torch ops, as fhetpu runs its XLA graph there.
+    plain versions for a CPU tensor.  fused_lazy selects the lazy-reduction
+    fused kernel (same output bits; ValueError where the primes leave it no
+    headroom, as in fhetpu).
+
+    With quantize on, the YCC transform and the per-slot quantize multiplies
+    run on the evaluator's torch ops, and the DCT between them on the
+    DCT-only kernel (its plain version for a CPU tensor).
     """
-    if not apply_quantize:
-        ev.server_state()  # build the kernel's tables now, not in the first call
+    ev.server_state()  # build the kernels' tables now, not in the first call
 
     def fn(cts: torch.Tensor) -> torch.Tensor:
         d = ev.transform_to_ntt(Ct(cts, input_ntt)).data  # [nb, 3, 64, 2, L, n]
         if not apply_quantize:
-            out = server_ycc_dct_fused(ev, d)
-        else:
-            y, cb, cr = rgb_to_ycc(ev, Ct(d[:, 0], True), Ct(d[:, 1], True),
-                                   Ct(d[:, 2], True))
-            out_ch = []
-            for chan in (y, cb, cr):
-                slots = [Ct(chan.data[:, k], True) for k in range(64)]
-                slots = quantize(ev, dct8x8(ev, slots), quant)
-                out_ch.append(torch.stack([modops.to_u32(s.data) for s in slots], dim=1))
-            out = torch.stack(out_ch, dim=1)
+            out = server_ycc_dct_fused(ev, d, lazy=fused_lazy)
+            return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data
+        y, cb, cr = rgb_to_ycc(ev, Ct(d[:, 0], True), Ct(d[:, 1], True), Ct(d[:, 2], True))
+        ycc = torch.stack([modops.to_u32(c.data) for c in (y, cb, cr)], dim=1)
+        dct = dct8x8_kernel(ev, ycc)  # [nb, 3, 64, 2, L, n]
+        slots = quantize(ev, [Ct(dct[:, :, k], True) for k in range(64)], quant)
+        out = torch.stack([modops.to_u32(s.data) for s in slots], dim=2)
         return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data
 
     return fn

@@ -1,7 +1,7 @@
 """fhetpu_torch's CLI protocol against fhetpu's: fhetpu's client around the
 port's server, the port's own client around it, the server's refusal to
 fall back to the CPU, chip_smoke.py's refusal without a GPU, and the
-package's independence from JAX.  Decrypted outputs must equal the golden
+package's independence from JAX and from fhetpu.  Decrypted outputs must equal the golden
 oracle exactly."""
 
 import os
@@ -130,9 +130,7 @@ import fhetpu_torch
 names = [m.name for m in pkgutil.walk_packages(fhetpu_torch.__path__, "fhetpu_torch.")]
 for name in names:
     importlib.import_module(name)
-shared = {"fhetpu", "fhetpu.bfv", "fhetpu.bfv.encoder", "fhetpu.codec",
-          "fhetpu.codec.jpeg", "fhetpu.io", "fhetpu.io.images", "fhetpu.core",
-          "fhetpu.core.primes", "fhetpu.native"}
+shared = set()  # the port keeps its own copies of fhetpu's JAX-free modules
 loaded = {m for m in sys.modules if m == "fhetpu" or m.startswith("fhetpu.")}
 assert loaded <= shared, sorted(loaded - shared)
 assert not any(m.startswith("jax") and sys.modules[m] is not None for m in sys.modules)
@@ -144,7 +142,7 @@ def test_package_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 16
+    assert int(r.stdout.split()[-1]) >= 29
 
 
 _RUN_SMOKE = """

@@ -4,6 +4,8 @@ format, and the NTT kernel's plain version against fhetpu's Pallas NTT in
 interpret mode.  Every comparison is exact (tolerance 0); inputs come from
 np.random.default_rng."""
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -168,6 +170,41 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "LIB_PATH", str(tmp_path / "libnone.so"))
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.build()
+
+
+_FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "{log}"
+case "$*" in *fail.cu*) echo "fail.cu: error" >&2; exit 1;; esac
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then echo built > "$2"; fi
+  shift
+done
+"""
+
+
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    """build() starts one nvcc -c per csrc/*.cu, links the objects into the
+    library, removes them, and raises with the compiler's output when a
+    source fails."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.replace("{log}", str(tmp_path / "calls.log")))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    out = tmp_path / "out"
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    monkeypatch.setattr(build, "LIB_PATH", str(out / "lib.so"))
+    assert build.build() == str(out / "lib.so")
+    calls = (tmp_path / "calls.log").read_text().splitlines()
+    sources = build._sources()
+    assert len(sources) >= 3 and len(calls) == len(sources) + 1
+    assert sorted(c.split(" -c ")[1].split()[0] for c in calls[:-1]) == sources
+    assert " -shared " in calls[-1] and calls[-1].count(".o") == len(sources)
+    assert os.listdir(out) == ["lib.so"]
+    monkeypatch.setattr(build, "_sources", lambda: sources + [str(tmp_path / "fail.cu")])
+    os.remove(out / "lib.so")
+    with pytest.raises(build.KernelBuildError, match="fail.cu: error"):
+        build.build()
+    assert os.listdir(out) == []
 
 
 @pytest.mark.parametrize("n", [2048, 4096])
