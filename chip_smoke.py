@@ -6,11 +6,12 @@
 Phases, each printed on its own line; any failure exits non-zero:
   1. build the CUDA kernels from fhetpu_torch/csrc (one nvcc per source, in
      parallel), print each kernel's registers and shared memory
-     (cuobjdump -res-usage) and the card;
+     (cuobjdump -res-usage), the NTT kernels' launch shape at each n
+     (threads, ring bytes, CTAs per SM, registers, spills) and the card;
   2. NTT and inverse-NTT kernels against their plain torch versions,
-     bit-equal (tolerance 0), at n = 2048/4096/8192/16384 on the q base and
-     n = 4096 on the Bsk base; inverse(forward(x)) == x; forward == the
-     host np_ntt;
+     bit-equal (tolerance 0), at n = 2048/4096/8192/16384 on the q and Bsk
+     bases, at a batch of 301 and the ragged batches 1, 3 and 7;
+     inverse(forward(x)) == x; forward == the host np_ntt;
   3. at the four ring degrees, nb = 2, each bit-equal (tolerance 0): the
      strict fused YCC+DCT kernel against its plain version; the lazy fused
      kernel against its plain version and the strict kernel at
@@ -58,6 +59,8 @@ IMG_HW = 48  # the reference benchmark's image size (BASELINE.md)
 DEGREES = (2048, 4096, 8192, 16384)
 TIMING_N = 4096
 TIMING_NB = 64  # the CLI's default --chunk-blocks
+NTT_BATCH = 301  # more polynomials than one wave of the NTT's persistent grid
+RAGGED = (1, 3, 7)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 KERNELS = {
@@ -96,13 +99,37 @@ def resource_usage(lib_path: str) -> list:
     for line in r.stdout.splitlines():
         found = re.search(r"Function (\S+):", line)
         if found:
-            short = re.search(r"(server_ycc_dct_kernelILi\d|dct8x8_kernel|ntt_kernelILb\d)",
+            short = re.search(r"(server_ycc_dct_kernelILi\d|dct8x8_kernel|ntt_kernelILb\dELi\d+)",
                               found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
             fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
             out.append(f"{name} REG:{fields.get('REG')} SHARED:{fields.get('SHARED')}")
             name = None
+    return out
+
+
+def ntt_occupancy() -> list:
+    """The NTT kernels' launch shape at each n, from fhetpu_ntt_occupancy:
+    threads and ring bytes per CTA, resident CTAs per SM (so polynomials in
+    flight per SM), registers and spilled bytes per thread."""
+    import ctypes
+
+    from fhetpu_torch.core import build
+
+    fn = build.lib().fhetpu_ntt_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    out = []
+    for n in DEGREES:
+        for fwd in (1, 0):
+            v = [ctypes.c_int() for _ in range(5)]
+            build.check(fn(n, fwd, *v), "fhetpu_ntt_occupancy")
+            threads, smem, per_sm, regs, local = (c.value for c in v)
+            in_flight = per_sm * (smem - 4 * n)  # all of a CTA's ring but the current slot
+            out.append(f"ntt_kernel {'forward' if fwd else 'inverse'} n={n}: {threads} threads, "
+                       f"{smem} B ring, {per_sm} CTAs/SM ({in_flight} B in flight per SM), "
+                       f"{regs} registers, {local} B local")
     return out
 
 
@@ -147,24 +174,31 @@ def phase_ntt(dev, gen, errs):
     from fhetpu_torch.bfv.params import BfvParams
     from fhetpu_torch.core import ntt, ntt_kernel
 
-    cases = [(n, "q", BfvParams.create(n=n).tables_q) for n in DEGREES]
-    cases.append((4096, "bsk", BfvParams.create(n=4096).tables_bsk))
-    for n, base, tables in cases:
-        dt = ntt_kernel.device_tables(tables, dev)
-        x = rand_residues((8,), tables.primes, n, gen, dev)
-        fk = ntt_kernel.ntt_forward(x, dt)
-        ik = ntt_kernel.ntt_inverse(fk, dt)
-        torch.cuda.synchronize()
-        ef = max_abs_err(fk, ntt_kernel.ntt_plain(x, dt))
-        ei = max_abs_err(ik, ntt_kernel.intt_plain(fk, dt))
-        errs["ntt_forward"] = max(errs["ntt_forward"], ef)
-        errs["ntt_inverse"] = max(errs["ntt_inverse"], ei)
-        host = ntt.np_ntt(x.cpu().numpy(), tables)
-        check(ef == 0 and ei == 0, f"NTT kernels vs plain at n={n} {base}: {ef}, {ei}")
-        check(max_abs_err(ik, x) == 0, f"inverse(forward(x)) != x at n={n} {base}")
-        check(np.array_equal(fk.cpu().numpy(), host), f"NTT kernel vs np_ntt at n={n} {base}")
-        print(f"phase 2: NTT n={n} {base} L={len(tables.primes)} B=8: forward and "
-              "inverse bit-equal to plain, roundtrip exact, equal to np_ntt", flush=True)
+    for n in DEGREES:
+        par = BfvParams.create(n=n)
+        for base, tables in (("q", par.tables_q), ("bsk", par.tables_bsk)):
+            dt = ntt_kernel.device_tables(tables, dev)
+            x = rand_residues((NTT_BATCH,), tables.primes, n, gen, dev)
+            fk = ntt_kernel.ntt_forward(x, dt)
+            ik = ntt_kernel.ntt_inverse(fk, dt)
+            torch.cuda.synchronize()
+            ef = max_abs_err(fk, ntt_kernel.ntt_plain(x, dt))
+            ei = max_abs_err(ik, ntt_kernel.intt_plain(fk, dt))
+            for b in RAGGED:  # batches smaller than the grid, each its own launch
+                ef = max(ef, max_abs_err(ntt_kernel.ntt_forward(x[:b], dt), fk[:b]))
+                ei = max(ei, max_abs_err(ntt_kernel.ntt_inverse(fk[:b], dt), ik[:b]))
+            errs["ntt_forward"] = max(errs["ntt_forward"], ef)
+            errs["ntt_inverse"] = max(errs["ntt_inverse"], ei)
+            host = ntt.np_ntt(x[:8].cpu().numpy(), tables)
+            check(ef == 0 and ei == 0, f"NTT kernels vs plain at n={n} {base}: {ef}, {ei}")
+            check(max_abs_err(ik, x) == 0, f"inverse(forward(x)) != x at n={n} {base}")
+            check(np.array_equal(fk[:8].cpu().numpy(), host),
+                  f"NTT kernel vs np_ntt at n={n} {base}")
+            print(f"phase 2: NTT n={n} {base} L={len(tables.primes)} B={NTT_BATCH} and "
+                  f"B={RAGGED}: forward and inverse bit-equal to plain, roundtrip exact, "
+                  "equal to np_ntt", flush=True)
+            del x, fk, ik
+        torch.cuda.empty_cache()
 
 
 def phase_server(dev, gen, errs):
@@ -545,6 +579,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     for usage in resource_usage(build.LIB_PATH):
         print(f"phase 1: {usage}", flush=True)
+    for line in ntt_occupancy():
+        print(f"phase 1: {line}", flush=True)
     print(card, flush=True)
 
     gen = torch.Generator(device=dev)

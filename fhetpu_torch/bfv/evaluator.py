@@ -87,10 +87,11 @@ class PlainOperand:
 
 
 class Evaluator:
-    """Holds per-params constants on one device; all methods are pure."""
+    """Holds per-params constants on one device (the card unless the caller
+    passes ``device="cpu"``); all methods are pure."""
 
     def __init__(self, params: BfvParams, encoder: Optional[FractionalEncoder] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params
         self.encoder = encoder or FractionalEncoder(params.t, params.n)
         self.device = torch.device(device)

@@ -10,6 +10,7 @@ JAX for the CPU suite and is left out there:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -54,7 +55,7 @@ def test_server_op_on_cuda_equals_plain(cuda, n):
     par = BfvParams.create(n=n, t=T)
     enc = FractionalEncoder(T, n)
     x = _residues(np.random.default_rng(n), par.q_primes, (2, 3, 64, 2), n)
-    want = server_compute_fn(Evaluator(par, enc))(torch.from_numpy(x))
+    want = server_compute_fn(Evaluator(par, enc, device="cpu"))(torch.from_numpy(x))
     before = _launches()
     got = server_compute_fn(Evaluator(par, enc, device=cuda))(torch.from_numpy(x).to(cuda))
     torch.cuda.synchronize()
@@ -62,16 +63,71 @@ def test_server_op_on_cuda_equals_plain(cuda, n):
     assert got.dtype == torch.uint32 and np.array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("n,base", [(2048, "tables_q"), (16384, "tables_q"),
-                                    (4096, "tables_bsk")])
-def test_ntt_kernels_equal_host_ntt(cuda, n, base):
-    """Forward kernel equals the host np_ntt, inverse kernel undoes it; at
-    n=16384 the polynomial needs more than 48 KB of shared memory."""
+NTT_CASES = [(n, "tables_q", b) for n in (2048, 4096, 8192, 16384) for b in (1, 3, 7)]
+NTT_CASES += [(n, "tables_bsk", b) for n in (4096, 16384) for b in (1, 7)]
+
+
+@pytest.mark.parametrize("n,base,batch", NTT_CASES)
+def test_ntt_kernels_equal_host_ntt(cuda, n, base, batch):
+    """Forward kernel equals its plain version and the host np_ntt, inverse
+    kernel equals its plain version and undoes it, one launch each; at
+    n=16384 the ring of two polynomials needs 128 KB of shared memory, and
+    the Bsk base there has 17 limbs."""
     tables = getattr(BfvParams.create(n=n, t=T), base)
-    x = _residues(np.random.default_rng(7), tables.primes, (3,), n)
+    dt = ntt_kernel.device_tables(tables, cuda)
+    x = _residues(np.random.default_rng(7 + batch), tables.primes, (batch,), n)
+    before = (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches)
     fx = ntt.ntt(torch.from_numpy(x).to(cuda), tables)
+    ix = ntt.intt(fx, tables)
+    torch.cuda.synchronize()
+    assert (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches) == (
+        before[0] + 1, before[1] + 1)
     assert np.array_equal(fx.cpu().numpy(), ntt.np_ntt(x, tables))
-    assert np.array_equal(ntt.intt(fx, tables).cpu().numpy(), x)
+    assert torch.equal(fx, ntt_kernel.ntt_plain(torch.from_numpy(x).to(cuda), dt))
+    assert torch.equal(ix, ntt_kernel.intt_plain(fx, dt))
+    assert np.array_equal(ix.cpu().numpy(), x)
+
+
+def test_ntt_kernels_take_over_65535_polynomials(cuda):
+    """32769 x 2 limbs = 65538 polynomials at n=2048, more than a grid
+    dimension's 65535 and many waves of the persistent grid with a ragged
+    last one: the first and last polynomials give the plain version's bits
+    and the roundtrip is exact."""
+    tables = BfvParams.create(n=2048, t=T).tables_q
+    dt = ntt_kernel.device_tables(tables, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    p = torch.tensor(tables.primes, dtype=torch.int64, device=cuda).reshape(-1, 1)
+    x = (torch.randint(0, 1 << 62, (32769, len(tables.primes), 2048), generator=gen,
+                       device=cuda, dtype=torch.int64) % p).to(torch.uint32)
+    fx = ntt_kernel.ntt_forward(x, dt)
+    torch.cuda.synchronize()
+    for rows in (slice(0, 2), slice(-2, None)):
+        assert torch.equal(fx[rows], ntt_kernel.ntt_plain(x[rows], dt))
+    assert torch.equal(ntt_kernel.ntt_inverse(fx, dt), x)
+
+
+def test_ntt_kernels_refuse_what_they_cannot_take(cuda):
+    """A prime of 2^30 or more (the lazy butterflies would overflow 32 bits),
+    a ring degree without a kernel, and data that is not 16-byte aligned
+    raise ValueError before any launch; nothing falls back to the plain
+    version."""
+    par = BfvParams.create(n=2048, t=T)
+    dt = ntt_kernel.device_tables(par.tables_q, cuda)
+    x = torch.zeros((1, par.L, par.n), dtype=torch.int64, device=cuda).to(torch.uint32)
+    wide = dataclasses.replace(dt, primes=((1 << 31) - (1 << 17) + 1,) * par.L)
+    small = ntt_kernel.device_tables(BfvParams.create(n=1024, t=T).tables_q, cuda)
+    flat = torch.zeros(1 + par.L * par.n, dtype=torch.int64, device=cuda).to(torch.uint32)
+    misaligned = flat[1:].view(1, par.L, par.n)
+    before = (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches)
+    for fn in (ntt_kernel.ntt_forward, ntt_kernel.ntt_inverse):
+        with pytest.raises(ValueError, match="2\\^30"):
+            fn(x, wide)
+        with pytest.raises(ValueError, match="takes n"):
+            fn(torch.zeros((1, small.L, small.n), dtype=torch.int64,
+                           device=cuda).to(torch.uint32), small)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(misaligned, dt)
+    assert (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches) == before
 
 
 def test_wrappers_check_inputs_on_cuda(cuda):
@@ -173,7 +229,7 @@ def test_quantize_op_on_cuda_equals_plain(cuda):
     enc = FractionalEncoder(T, 2048)
     quant = build_quant_tables(50)[0][ZIGZAG].astype(np.float64)
     x = _residues(np.random.default_rng(5), par.q_primes, (2, 3, 64, 2), 2048)
-    want = server_compute_fn(Evaluator(par, enc), apply_quantize=True,
+    want = server_compute_fn(Evaluator(par, enc, device="cpu"), apply_quantize=True,
                              quant=quant)(torch.from_numpy(x))
     before = (dct_kernel.dct8x8_kernel.launches,) + _launches()
     got = server_compute_fn(Evaluator(par, enc, device=cuda), apply_quantize=True,

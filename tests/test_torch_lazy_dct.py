@@ -52,7 +52,7 @@ def _pair(q_bits=None):
         fpar = FBfvParams(n=N, t=T, q_primes=q, b_primes=fpar.b_primes, m_sk=fpar.m_sk)
         par = BfvParams(n=N, t=T, q_primes=q, b_primes=par.b_primes, m_sk=par.m_sk)
     return (FEvaluator(fpar, FFractionalEncoder(T, N)),
-            Evaluator(par, FractionalEncoder(T, N)))
+            Evaluator(par, FractionalEncoder(T, N), device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +157,7 @@ def test_quantize_dct_kernel_path_decrypts_to_golden():
     kg = crypto.KeyGenerator(par, seed=17)
     enc = crypto.Encryptor(par, kg.public_key(), seed=18)
     encoder = FractionalEncoder(T, N)
-    ev = Evaluator(par, encoder)
+    ev = Evaluator(par, encoder, device="cpu")
     img = np.random.default_rng(44).integers(0, 256, size=(8, 8, 3), dtype=np.uint8)
     blocks = np.stack([images.split_blocks(img[..., c].astype(np.float64))
                        for c in range(3)], axis=1)  # [1, 3, 64]

@@ -65,7 +65,7 @@ def fused_ref():
     x_ntt = f_ntt.np_ntt(x_coef, fpar.tables_q)
     out_ntt = np.asarray(pallas_server.server_ycc_dct_fused(
         fev, jnp.asarray(x_ntt), interpret=True))
-    ev = Evaluator(BfvParams.create(n=N, t=T), FractionalEncoder(T, N))
+    ev = Evaluator(BfvParams.create(n=N, t=T), FractionalEncoder(T, N), device="cpu")
     return fev, ev, x_coef, x_ntt, out_ntt
 
 
@@ -73,7 +73,7 @@ def fused_ref():
 def test_server_constants_and_operands_equal_fhetpu(n):
     enc = FractionalEncoder(T, n)
     fev = FEvaluator(FBfvParams.create(n=n, t=T), enc)
-    ev = Evaluator(BfvParams.create(n=n, t=T), enc)
+    ev = Evaluator(BfvParams.create(n=n, t=T), enc, device="cpu")
     for got, want in zip(server_kernel.pack_server_constants(ev),
                          pallas_server.pack_server_constants(fev)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
@@ -194,7 +194,7 @@ def test_quantize_path_decrypts_to_golden():
     kg = crypto.KeyGenerator(par, seed=7)
     enc = crypto.Encryptor(par, kg.public_key(), seed=8)
     encoder = FractionalEncoder(T, N)
-    ev = Evaluator(par, encoder)
+    ev = Evaluator(par, encoder, device="cpu")
     img = np.random.default_rng(12).integers(0, 256, size=(8, 8, 3), dtype=np.uint8)
     blocks = np.stack([images.split_blocks(img[..., c].astype(np.float64))
                        for c in range(3)], axis=1)  # [1, 3, 64]
