@@ -7,14 +7,17 @@ Phases, each printed on its own line; any failure exits non-zero:
   1. build the CUDA kernels from fhetpu_torch/csrc (one nvcc per source, in
      parallel), print each kernel's registers and shared memory
      (cuobjdump -res-usage), the NTT kernels' launch shape at each n
-     (threads, ring bytes, CTAs per SM, registers, spills) and the card;
+     (threads, ring bytes, CTAs per SM, registers, spills), the strict
+     fused kernel's (threads, shared bytes, CTAs per SM, registers, spills)
+     and the card;
   2. NTT and inverse-NTT kernels against their plain torch versions,
      bit-equal (tolerance 0), at n = 2048/4096/8192/16384 on the q and Bsk
      bases, at a batch of 301 and the ragged batches 1, 3 and 7;
      inverse(forward(x)) == x; forward == the host np_ntt;
-  3. at the four ring degrees, nb = 2, each bit-equal (tolerance 0): the
-     strict fused YCC+DCT kernel against its plain version; the lazy fused
-     kernel against its plain version and the strict kernel at
+  3. at the four ring degrees, nb = 2, on random residues and on every
+     input at p - 1 (the largest intermediates), each bit-equal (tolerance
+     0): the strict fused YCC+DCT kernel against its plain version; the lazy
+     fused kernel against its plain version and the strict kernel at
      n = 2048/4096 (m = 2) and 8192 (m = 1), and its ValueError at 16384;
      the DCT-only kernel against its plain version;
   4. the main paths on a seeded 48x48 RGB image encrypted by the client
@@ -64,7 +67,7 @@ RAGGED = (1, 3, 7)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 KERNELS = {
-    "server_ycc_dct": ("fhetpu_torch/csrc/server_ycc_dct.cu",
+    "server_ycc_dct": ("fhetpu_torch/csrc/server_ycc_dct_strict.cu",
                        "fhetpu/core/pallas_server.py:237"),
     "ntt_forward": ("fhetpu_torch/csrc/ntt.cu", "fhetpu/core/pallas_ntt.py:98"),
     "ntt_inverse": ("fhetpu_torch/csrc/ntt.cu", "fhetpu/core/pallas_ntt.py:98"),
@@ -99,8 +102,8 @@ def resource_usage(lib_path: str) -> list:
     for line in r.stdout.splitlines():
         found = re.search(r"Function (\S+):", line)
         if found:
-            short = re.search(r"(server_ycc_dct_kernelILi\d|dct8x8_kernel|ntt_kernelILb\dELi\d+)",
-                              found.group(1))
+            short = re.search(r"(server_ycc_dct_strict_kernel|server_ycc_dct_lazy_kernelILi\d"
+                              r"|dct8x8_kernel|ntt_kernelILb\dELi\d+)", found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
             fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
@@ -131,6 +134,25 @@ def ntt_occupancy() -> list:
                        f"{smem} B ring, {per_sm} CTAs/SM ({in_flight} B in flight per SM), "
                        f"{regs} registers, {local} B local")
     return out
+
+
+def server_occupancy() -> str:
+    """The strict fused kernel's launch shape, from
+    fhetpu_server_ycc_dct_occupancy: threads and static shared memory per
+    CTA, resident CTAs (and warps) per SM, registers and spilled bytes per
+    thread."""
+    import ctypes
+
+    from fhetpu_torch.core import build
+
+    fn = build.lib().fhetpu_server_ycc_dct_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    v = [ctypes.c_int() for _ in range(5)]
+    build.check(fn(*v), "fhetpu_server_ycc_dct_occupancy")
+    threads, smem, per_sm, regs, local = (c.value for c in v)
+    return (f"server_ycc_dct_strict_kernel: {threads} threads, {smem} B shared, {per_sm} CTAs/SM "
+            f"({per_sm * threads // 32} warps), {regs} registers, {local} B local")
 
 
 def counters() -> dict:
@@ -201,6 +223,16 @@ def phase_ntt(dev, gen, errs):
         torch.cuda.empty_cache()
 
 
+def worst_residues(prefix, primes, n, device):
+    """Every residue at p - 1: the largest values each kernel's bounds
+    must hold."""
+    import torch
+
+    top = torch.tensor(primes, dtype=torch.int64, device=device).reshape(-1, 1) - 1
+    shape = tuple(prefix) + (len(primes), n)
+    return top.expand(len(primes), n).to(torch.uint32).expand(shape).contiguous()
+
+
 def phase_server(dev, gen, errs):
     import torch
     from fhetpu_torch.bfv.evaluator import Evaluator
@@ -211,7 +243,8 @@ def phase_server(dev, gen, errs):
         par = BfvParams.create(n=n)
         ev = Evaluator(par, device=dev)
         st = ev.server_state(dev)
-        x = rand_residues((2, 3, 64, 2), par.q_primes, n, gen, dev)
+        x = torch.cat([rand_residues((2, 3, 64, 2), par.q_primes, n, gen, dev),
+                       worst_residues((1, 3, 64, 2), par.q_primes, n, dev)])
         strict = server_kernel.server_ycc_dct_fused(ev, x)
         torch.cuda.synchronize()
         e = max_abs_err(strict, server_kernel.server_ycc_dct_plain(x, st))
@@ -239,8 +272,8 @@ def phase_server(dev, gen, errs):
         e = max_abs_err(dct, dct_kernel.dct8x8_plain(x, st))
         errs["dct8x8"] = max(errs["dct8x8"], e)
         check(e == 0, f"DCT kernel vs plain at n={n}: max abs err {e}")
-        print(f"phase 3: n={n} L={par.L} nb=2: fused YCC+DCT bit-equal to plain; "
-              f"{lazy_note}; DCT-only bit-equal to plain", flush=True)
+        print(f"phase 3: n={n} L={par.L} nb=2 random + 1 at p-1: fused YCC+DCT bit-equal "
+              f"to plain; {lazy_note}; DCT-only bit-equal to plain", flush=True)
         del ev, st, x, strict, dct
         torch.cuda.empty_cache()
 
@@ -581,6 +614,7 @@ def main() -> int:
         print(f"phase 1: {usage}", flush=True)
     for line in ntt_occupancy():
         print(f"phase 1: {line}", flush=True)
+    print(f"phase 1: {server_occupancy()}", flush=True)
     print(card, flush=True)
 
     gen = torch.Generator(device=dev)

@@ -1,15 +1,17 @@
-"""The fused JPEG server kernels (``csrc/server_ycc_dct.cu``): constants,
-plain versions and wrappers.
+"""The fused JPEG server kernels (``csrc/server_ycc_dct_strict.cu`` and
+``csrc/server_ycc_dct.cu``): constants, plain versions and wrappers.
 
 Counterpart of ``fhetpu/core/pallas_server.py``, strict and lazy.  One pass
 over NTT-domain ciphertexts ``uint32[nb, 3, 64, 2, L, n]`` computes RGB ->
 YCbCr, subtracts NTT(Delta * encode(128)) from component 0 of Y, and runs
 the two-pass AAN DCT with the x encode(0.125) column scaling.  The strict
-kernel keeps every residue canonical in [0, p); the lazy kernel lets
-intermediates grow to a multiple of p and reduces them only at the points
-where fhetpu's lazy kernel does, for the same output bits.  The (L, n) axes
-are one lane axis of length L*n, each lane with its own modulus, so every
-constant is a per-lane row of a ``[24, L*n]`` table.
+op's plain version keeps every residue canonical in [0, p), as fhetpu's
+strict kernel does; its CUDA kernel keeps intermediates below 4p and makes
+only its output canonical, which takes every prime below 2^30.  The lazy
+kernel lets intermediates grow to a multiple of p and reduces them only at
+the points where fhetpu's lazy kernel does.  All give the same output bits.
+The (L, n) axes are one lane axis of length L*n, each lane with its own
+modulus, so every constant is a per-lane row of a ``[24, L*n]`` table.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ N_YCC = len(YCC_MULS)  # 8
 _ROWS = 24  # 13 DCT + 8 YCC muls + 1 sub_plain(128) + 1 p row, padded to 24
 _SUB_ROW = N_DCT + N_YCC  # 21
 _P_ROW = N_DCT + N_YCC + 1  # 22
+KERNEL_PRIME_LIMIT = 1 << 30  # the strict kernel's values stay < 4p < 2^32
 
 
 def pack_server_constants(ev):
@@ -312,9 +315,20 @@ def check_kernel_args(x: torch.Tensor, state, what: str, channels=(3,)):
                              f"not fit uint32 [{_ROWS}, {lanes}] on {x.device}")
 
 
+def check_kernel_primes(state):
+    """Raise ValueError where a modulus of the state is 2^30 or more: the
+    strict kernel's intermediates (up to 4p) would overflow 32 bits.  The
+    plain versions take such primes."""
+    if max(state.q_primes) >= KERNEL_PRIME_LIMIT:
+        raise ValueError(f"server kernel needs every prime < 2^30 (intermediates reach 4p "
+                         f"< 2^32); got {max(state.q_primes)}")
+
+
 def _launch(x: torch.Tensor, state, m: int) -> torch.Tensor:
-    """m = 0: the strict kernel; m = 1 or 2: the lazy kernel."""
+    """m = 0: the strict kernel; m = 1 or 2: the lazy kernel.  Checks the
+    arguments and the primes before anything is built or launched."""
     check_kernel_args(x, state, "server kernel")
+    check_kernel_primes(state)
     out = torch.empty_like(x)
     nb, lanes = x.shape[0], x.shape[4] * x.shape[5]
     if nb == 0:
@@ -338,6 +352,8 @@ def server_ycc_dct_fused(ev, x: torch.Tensor, lazy: bool = False) -> torch.Tenso
     Launches the strict fused kernel for a CUDA tensor and runs
     ``server_ycc_dct_plain`` for a CPU tensor; the constants are the
     evaluator's, uploaded once per device (``Evaluator.server_state``).
+    On CUDA it raises ValueError, before any launch, for a prime of 2^30 or
+    more (``check_kernel_primes``).
 
     lazy=True takes the lazy-reduction kernel (``server_ycc_dct_lazy_plain``
     on a CPU tensor), with the same output bits, and counts its launches in

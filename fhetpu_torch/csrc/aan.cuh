@@ -1,5 +1,6 @@
-// The two-pass 8x8 AAN DCT on canonical residues, shared by the fused
-// server kernel (server_ycc_dct.cu) and the DCT-only kernel (dct.cu).
+// The two-pass 8x8 AAN DCT on canonical residues, for the DCT-only kernel
+// (dct.cu), and the per-lane DCT constants that the fused server kernels
+// (server_ycc_dct.cu, server_ycc_dct_strict.cu) share with it.
 //
 // Constants come from the rows of pack_server_constants (a [24, L*n] table
 // indexed by lane): rows 0..12 are the DCT multipliers in the order of

@@ -1,16 +1,14 @@
-// The whole JPEG server op in one pass: RGB -> YCbCr, minus Delta*128 on
+// The lazy JPEG server op in one pass: RGB -> YCbCr, minus Delta*128 on
 // component 0 of Y, and the two-pass 8x8 AAN DCT with the x0.125 column
 // scaling, over NTT-domain ciphertexts.
 //
-// One template, two kernels of fhetpu/core/pallas_server.py:
-//  * M = 0 replaces _server_kernel (server_ycc_dct_fused with lazy=False):
-//    every value stays canonical in [0, p);
-//  * M = 1 or 2 replaces _make_lazy_kernel(m) (lazy=True): intermediates
-//    ride in [0, k*p) with raw uint32 adds, and are reduced only where the
-//    TPU kernel reduces them (_red_to); the output is canonical again and
-//    bit-identical to M = 0.  Headroom: the largest intermediate is 8*M*p
-//    (16p at M = 2, primes < 2^28; 8p at M = 1, primes < 2^29), and the
-//    caller picks M from the primes as fhetpu's lazy_bound_multiple does.
+// Replaces fhetpu/core/pallas_server.py:_make_lazy_kernel(m) (lazy=True),
+// M = m = 1 or 2: intermediates ride in [0, k*p) with raw uint32 adds, and
+// are reduced only where the TPU kernel reduces them (_red_to); the output
+// is canonical and bit-identical to the strict kernel's
+// (server_ycc_dct_strict.cu).  Headroom: the largest intermediate is 8*M*p
+// (16p at M = 2, primes < 2^28; 8p at M = 1, primes < 2^29), and the caller
+// picks M from the primes as fhetpu's lazy_bound_multiple does.
 // Same layout as the TPU kernels: x is uint32 [nb, 3, 64, 2, L*n] (block,
 // RGB channel, coefficient slot 8*g + s, ciphertext component, lane), where
 // a lane is one of the L*n RNS residues and carries its own modulus.  Same
@@ -30,10 +28,10 @@
 // The fewest integer operations that give these bits (the lazy graph of
 // M = 2: 8.1k per thread, 4k of them multiplies on the FMA pipe) take about
 // half that time, so HBM bounds it; the design moves each byte once and
-// uses the native __umulhi for every Shoup product.  The lazy variant
-// trades each modular add's compare-and-select for a plain add, and drops
-// the TPU kernel's 16-bit split companion tables: __umulhi gives the same
-// exact high product.
+// uses the native __umulhi for every Shoup product.  The lazy graph trades
+// each modular add's compare-and-select for a plain add, and drops the TPU
+// kernel's 16-bit split companion tables: __umulhi gives the same exact
+// high product.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,9 +129,9 @@ __device__ __forceinline__ void dct8x8_lazy(uint32_t* v, const DctConsts& k, uin
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
-    server_ycc_dct_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                          const uint32_t* __restrict__ C, const uint32_t* __restrict__ Csh,
-                          long long lanes) {
+    server_ycc_dct_lazy_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                               const uint32_t* __restrict__ C, const uint32_t* __restrict__ Csh,
+                               long long lanes) {
   __shared__ uint32_t parked[2][64][kThreads];  // Cb, Cr of this thread's 64 slots
   const long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (j >= lanes) return;
@@ -149,13 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   // -Delta*128 applies to ciphertext component 0 only; x - 0 is x
   const uint32_t sub = comp == 0 ? C[kSubRow * lanes + j] : 0u;
-  auto mul = [&](uint32_t v, int i) {
-    if constexpr (M == 0) {
-      return mulmod_shoup(v, yw[i], ys[i], p);
-    } else {
-      return mulmod_shoup_lazy(v, yw[i], ys[i], p);
-    }
-  };
+  auto mul = [&](uint32_t v, int i) { return mulmod_shoup_lazy(v, yw[i], ys[i], p); };
 
   // element (b, ch, s, comp, j) lives at (((b*3 + ch)*64 + s)*2 + comp)*lanes + j
   const size_t slot_stride = 2 * static_cast<size_t>(lanes);
@@ -169,18 +161,11 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t r = x[off];
     const uint32_t g = x[off + ch_stride];
     const uint32_t bl = x[off + 2 * ch_stride];
-    if constexpr (M == 0) {
-      const uint32_t y = addmod(addmod(mul(r, 0), mul(g, 1), p), mul(bl, 2), p);
-      v[s] = submod(y, sub, p);
-      parked[0][s][threadIdx.x] = addmod(submod(mul(r, 3), mul(g, 4), p), mul(bl, 5), p);
-      parked[1][s][threadIdx.x] = submod(submod(mul(r, 5), mul(g, 6), p), mul(bl, 7), p);
-    } else {
-      // each sum < 6p before the offsets (pallas_server.py:206-213); y < 7p
-      const uint32_t y = mul(r, 0) + mul(g, 1) + mul(bl, 2) + p - sub;
-      v[s] = red_to<8, M>(y, p);
-      parked[0][s][threadIdx.x] = red_to<8, M>(mul(r, 3) + 2 * p - mul(g, 4) + mul(bl, 5), p);
-      parked[1][s][threadIdx.x] = red_to<8, M>(mul(r, 5) + 4 * p - mul(g, 6) - mul(bl, 7), p);
-    }
+    // each sum < 6p before the offsets (pallas_server.py:206-213); y < 7p
+    const uint32_t y = mul(r, 0) + mul(g, 1) + mul(bl, 2) + p - sub;
+    v[s] = red_to<8, M>(y, p);
+    parked[0][s][threadIdx.x] = red_to<8, M>(mul(r, 3) + 2 * p - mul(g, 4) + mul(bl, 5), p);
+    parked[1][s][threadIdx.x] = red_to<8, M>(mul(r, 5) + 4 * p - mul(g, 6) - mul(bl, 7), p);
   }
 
   const DctConsts k = load_dct_consts(C, Csh, lanes, j);
@@ -190,11 +175,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int s = 0; s < 64; ++s) v[s] = parked[ch - 1][s][threadIdx.x];
     }
-    if constexpr (M == 0) {
-      dct8x8(v, k, p);
-    } else {
-      dct8x8_lazy<M>(v, k, p);
-    }
+    dct8x8_lazy<M>(v, k, p);
     const size_t ch_base = base + ch * ch_stride;
 #pragma unroll
     for (int s = 0; s < 64; ++s) out[ch_base + s * slot_stride] = v[s];
@@ -207,7 +188,7 @@ int launch(const uint32_t* x, uint32_t* out, const uint32_t* consts,
   if (nb < 1 || nb > 65535 || lanes < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((lanes + kThreads - 1) / kThreads), 2,
                   static_cast<unsigned>(nb));
-  server_ycc_dct_kernel<M><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  server_ycc_dct_lazy_kernel<M><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, out, consts, consts_shoup, lanes);
   return static_cast<int>(cudaGetLastError());
 }
@@ -215,15 +196,9 @@ int launch(const uint32_t* x, uint32_t* out, const uint32_t* consts,
 }  // namespace
 
 // x, out: uint32 [nb, 3, 64, 2, lanes] (distinct buffers), lanes = L*n;
-// consts, consts_shoup: uint32 [24, lanes] from pack_server_constants.
-extern "C" int fhetpu_server_ycc_dct(const uint32_t* x, uint32_t* out, const uint32_t* consts,
-                                     const uint32_t* consts_shoup, long long nb, long long lanes,
-                                     void* stream) {
-  return launch<0>(x, out, consts, consts_shoup, nb, lanes, stream);
-}
-
-// The lazy kernel, same arguments plus m = lazy_bound_multiple (1 or 2):
-// every prime of the table must be below 2^32 / (8m).
+// consts, consts_shoup: uint32 [24, lanes] from pack_server_constants;
+// m = lazy_bound_multiple (1 or 2): every prime of the table must be below
+// 2^32 / (8m).
 extern "C" int fhetpu_server_ycc_dct_lazy(const uint32_t* x, uint32_t* out,
                                           const uint32_t* consts, const uint32_t* consts_shoup,
                                           long long nb, long long lanes, int m, void* stream) {

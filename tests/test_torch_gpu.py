@@ -150,6 +150,38 @@ def test_wrappers_check_inputs_on_cuda(cuda):
     assert _launches() == before
 
 
+@pytest.mark.parametrize("inputs", ["random", "p-1"])
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_strict_kernel_equals_plain(cuda, n, inputs):
+    """The strict fused kernel, one launch, gives the bits of its plain
+    version at n=8192 and 16384 (30-bit primes: its intermediates reach 4p,
+    near 2^32), on random residues and on every input at p - 1."""
+    par = BfvParams.create(n=n, t=T)
+    ev = Evaluator(par, device=cuda)
+    if inputs == "random":
+        x = _residues(np.random.default_rng(n + 2), par.q_primes, (1, 3, 64, 2), n)
+    else:
+        p = np.asarray(par.q_primes, dtype=np.uint64).reshape(-1, 1)
+        x = np.broadcast_to(p - 1, (1, 3, 64, 2, par.L, n)).astype(np.uint32)
+    xc = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    before = server_kernel.server_ycc_dct_fused.launches
+    got = server_kernel.server_ycc_dct_fused(ev, xc)
+    torch.cuda.synchronize()
+    assert server_kernel.server_ycc_dct_fused.launches == before + 1
+    assert torch.equal(got, server_kernel.server_ycc_dct_plain(xc, ev.server_state(cuda)))
+
+
+def test_strict_kernel_refuses_primes_from_2_30(cuda):
+    """A modulus of 2^30 or more raises ValueError before any launch: the
+    strict kernel's intermediates (up to 4p) would overflow 32 bits."""
+    par = BfvParams.create(n=2048, t=T)
+    st = Evaluator(par, device=cuda).server_state(cuda)
+    wide = dataclasses.replace(st, q_primes=((1 << 31) - (1 << 17) + 1,) * par.L)
+    x = torch.zeros((1, 3, 64, 2, par.L, par.n), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="2\\^30"):
+        server_kernel._launch(x.to(torch.uint32), wide, 0)
+
+
 @pytest.mark.parametrize("n", [2048, 8192])
 def test_lazy_kernel_equals_plain_and_strict(cuda, n):
     """The lazy fused kernel (m = 2 at n=2048, m = 1 at n=8192) gives the

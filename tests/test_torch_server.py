@@ -157,6 +157,17 @@ def test_server_plain_matches_fhetpu_fused_kernel(fused_ref):
     assert np.array_equal(ntt_kernel.ntt_plain(back, state.ntt).numpy(), x_ntt)
 
 
+def test_strict_kernel_schedule_matches_fhetpu_fused_kernel(fused_ref):
+    """The NumPy emulation of the strict CUDA kernel's schedule
+    (tests/test_torch_server_schedule.py), on fhetpu's own tables, gives
+    fhetpu's fused kernel's bits (interpret mode, the fixture's run)."""
+    from test_torch_server_schedule import emulate_strict_kernel
+
+    fev, _, _, x_ntt, out_ntt = fused_ref
+    consts, consts_shoup = pallas_server.pack_server_constants(fev)
+    assert np.array_equal(emulate_strict_kernel(x_ntt, consts, consts_shoup), out_ntt)
+
+
 def test_server_op_matches_fhetpu(fused_ref):
     """The whole server op on a coefficient-form input (NTT, fused, INTT on
     the port's own tables) equals fhetpu's np_ntt -> fused -> np_intt; on a
