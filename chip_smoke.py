@@ -35,9 +35,27 @@ Phases, each printed on its own line; any failure exits non-zero:
         and out) on the same stream: the lazy kernel launches, and its
         output equals the strict op's and, after the inverse NTT, the
         stream of 4a;
+     d-h. the resize main paths on the same image, 48x48 -> 17x17: the
+        resize client sends it at the ring degree its chooser picks
+        (bilinear n = 4096, bicubic n = 8192, the bicubic stream with
+        evaluation keys at dbc 30), and server_resize --device cuda runs
+        d. bilinear with encrypted fracts (ct x ct, unrelinearized),
+        e. bilinear --plain-fracts on the same stream,
+        f. bicubic with encrypted fracts (unrelinearized, size 8),
+        g. bicubic --plain-fracts on the same stream,
+        h. bicubic --relin;
+        on each the NTT kernels launch and the JPEG kernels do not, the
+        decoded values are within 1e-5 of resize_float, and the RMS against
+        the cv ground truth and the peak device memory are printed; every
+        path of a stream decrypts to the --plain-fracts path's polynomials
+        exactly, and every output row to the golden network's;
   5. CUDA-event times of the whole server op, strict and --quantize, and of
      each kernel against its plain version at n=4096 and the CLI's 64-block
-     chunk, beside each kernel's bound on this card.
+     chunk, beside each kernel's bound on this card; then per resize tile
+     (4 rows x 17 columns, encrypted fracts) at n = 4096 bilinear and
+     n = 8192 bicubic: CUDA-event ms, the host time of the fract operands,
+     NTT launches per tile on q and Bsk, the NTT kernels' share of device
+     time (torch.profiler), interps/s and peak device memory.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.  Imports neither
@@ -453,6 +471,115 @@ def phase_main_paths(dev):
             "dct8x8": launches["quantize"]["dct8x8"]}
 
 
+def _golden_resize_row(encoder, img, h2, w2, mode, y):
+    """[W', 3, n] plaintext coefficients of output row y through the
+    golden mod-t network, pixel by pixel (plain-fract semantics: the
+    encrypted-fract path decrypts to the same polynomials)."""
+    from types import SimpleNamespace
+
+    from fhetpu_torch.bfv.golden import GoldenEvaluator
+    from fhetpu_torch.pipelines import resize as rz
+
+    gev = GoldenEvaluator(encoder)
+    rp, cp = rz.axis_plan(img.shape[0], h2, mode), rz.axis_plan(img.shape[1], w2, mode)
+
+    def fracts(f):
+        t, omt, t2, t3 = (polys[0] if polys else None
+                          for polys in rz.fract_polys(encoder, [f], mode))
+        return SimpleNamespace(t=t, one_minus_t=omt, t2=t2, t3=t3)
+
+    rows = {int(r): encoder.encode_batch(img[r].astype(np.float64)) for r in rp.idx[y]}
+    fy = fracts(rp.fract[y])
+    interp = rz.linear_interp if mode == rz.BILINEAR else rz.cubic_interp
+    out = []
+    for x in range(w2):
+        fx = fracts(cp.fract[x])
+        cols = [interp(gev, *[rows[int(r)][k] for k in cp.idx[x]], fx, True) for r in rp.idx[y]]
+        out.append(interp(gev, *cols, fy, True))
+    return np.stack(out)
+
+
+RESIZE_HW = 17  # the reference benchmark's output size (BASELINE.md)
+RESIZE_TIMING = (("bilinear", 4096), ("bicubic", 8192))  # the client's chooser's n
+
+
+def phase_resize_paths(dev):
+    """The resize main paths on the seeded 48x48 image, 48x48 -> 17x17:
+    the client sends at the ring degree its chooser picks, then
+    server_resize --device cuda runs each path with every launch count set
+    to 0 just before it and read just after; the client decrypts."""
+    import torch
+    from fhetpu_torch.bfv.encoder import FractionalEncoder
+    from fhetpu_torch.cli import client_resize, server_resize
+    from fhetpu_torch.io import images
+    from fhetpu_torch.pipelines import resize as rz
+    from fhetpu_torch.pipelines.cv_resize import cv_ground_truth
+
+    img = np.random.default_rng(SEED).integers(0, 256, size=(IMG_HW, IMG_HW, 3),
+                                               dtype=np.uint8)
+    size = ["--width", str(RESIZE_HW), "--height", str(RESIZE_HW)]
+    step = 0
+    for mode_name, mode, want_n in (("bilinear", rz.BILINEAR, 4096), ("bicubic", rz.BICUBIC, 8192)):
+        flags = ["--bicubic"] if mode == rz.BICUBIC else []
+        paths = [("default", []), ("plain-fracts", ["--plain-fracts"])]
+        if mode == rz.BICUBIC:  # the one stream carries evaluation keys for --relin
+            paths.append(("relin", ["--relin"]))
+        with tempfile.TemporaryDirectory() as d:
+            common = ["--keydir", os.path.join(d, "keys")] + size + flags
+            c2s = os.path.join(d, "c2s.bin")
+            sargs = client_resize.parser().parse_args(
+                ["--send", "-c", c2s] + common + (["--relin"] if mode == rz.BICUBIC else []))
+            t0 = time.perf_counter()
+            client_resize.send_array(sargs, img)
+            t_send = time.perf_counter() - t0
+            check(sargs.cmod == want_n, f"{mode_name}: client chose n={sargs.cmod}, not {want_n}")
+            encoder = FractionalEncoder(sargs.pmod, sargs.cmod)
+            plains = {}
+            for path, extra in paths:
+                s2c = os.path.join(d, f"s2c_{path}.bin")
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                server_resize.main(["-i", c2s, "-c", s2c, "--device", "cuda"] + extra + common)
+                t_server = time.perf_counter() - t0
+                got = read_launches()
+                peak = torch.cuda.max_memory_allocated(dev)
+                check(got["ntt_forward"] > 0 and got["ntt_inverse"] > 0,
+                      f"{mode_name} {path}: the NTT kernels never launched: {got}")
+                check(all(got[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy",
+                                                 "dct8x8")),
+                      f"{mode_name} {path}: a JPEG kernel launched: {got}")
+                rargs = client_resize.parser().parse_args(["--recieve", "-i", s2c] + common)
+                t0 = time.perf_counter()
+                vals, plains[path] = client_resize.recieve_arrays(rargs, keep_plain=True)
+                t_recv = time.perf_counter() - t0
+                os.remove(s2c)
+                ref = rz.resize_float(img, RESIZE_HW, RESIZE_HW, mode)
+                worst = float(np.abs(vals - ref).max())
+                check(np.isfinite(vals).all() and worst <= 1e-5,
+                      f"{mode_name} {path}: decoded values off resize_float by {worst}")
+                gt = cv_ground_truth(img, RESIZE_HW, RESIZE_HW, mode == rz.BICUBIC)
+                rms = images.rms_error(client_resize.to_pixels(vals), gt)
+                step += 1
+                print(f"phase 4{'defgh'[step - 1]}: resize {mode_name} {path}, {IMG_HW}x{IMG_HW} -> "
+                      f"{RESIZE_HW}x{RESIZE_HW}, n={sargs.cmod}: client send "
+                      f"{t_send:.3f} s, server CLI {t_server:.3f} s, client receive {t_recv:.3f} s "
+                      f"(host clock); peak device memory {peak / 2**30:.3f} GiB; decoded values "
+                      f"within {worst:.3g} of resize_float; RMSError,{rms:.6g}, against the cv "
+                      f"ground truth; launches {got}", flush=True)
+            for path in plains:
+                check(np.array_equal(plains[path], plains["plain-fracts"]),
+                      f"{mode_name} {path}: decrypted polynomials differ from --plain-fracts'")
+            t0 = time.perf_counter()
+            for y in range(RESIZE_HW):
+                want = _golden_resize_row(encoder, img, RESIZE_HW, RESIZE_HW, mode, y)
+                check(np.array_equal(plains["plain-fracts"][y], want),
+                      f"{mode_name}: output row {y} differs from the golden network")
+            print(f"phase 4: resize {mode_name}: every path ({', '.join(plains)}) decrypts to the "
+                  f"same polynomials, and every output row to the golden network's "
+                  f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+
+
 def time_ms(fn, reps: int) -> float:
     import torch
 
@@ -489,6 +616,95 @@ LAZY_DCT = (8 * (28 * LAZY_ADD + 12 * LAZY_MUL + 8 * 3 * RED)
             + 8 * (28 * LAZY_ADD + 20 * LAZY_MUL + 8 * RED))
 LANE_OPS_PER_CLOCK = np.array([64, 64])  # FMA pipe, ALU pipe, per SM
 ISSUE_PER_CLOCK = 128  # 4 warp schedulers x 32 lanes, per SM
+
+
+def _device_times(prof) -> tuple:
+    """(NTT kernels' ms, all kernels' ms) of a torch.profiler run: device
+    time summed over the CUDA events (the NTT kernels by their name)."""
+    import torch
+
+    ntt_us = all_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        all_us += us
+        ntt_us += us if "ntt_kernel" in evt.key else 0.0
+    return ntt_us / 1e3, all_us / 1e3
+
+
+def phase_resize_timing(dev, gen, card):
+    """CUDA-event ms of one resize tile (4 output rows x 17 columns, the
+    server's default tile, over a source window of random residues) for the
+    bilinear (n=4096) and bicubic (n=8192) encrypted-fract ops, the host
+    time of their fract operands, the NTT launches per tile on each base,
+    the share of device time in the NTT kernels (torch.profiler), interps/s
+    and peak device memory."""
+    import torch
+    from fhetpu_torch.bfv.crypto import Encryptor, KeyGenerator
+    from fhetpu_torch.bfv.encoder import FractionalEncoder
+    from fhetpu_torch.bfv.evaluator import Evaluator
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.cli.server_resize import tile_rows
+    from fhetpu_torch.core import ntt_kernel
+    from fhetpu_torch.pipelines import resize as rz
+
+    for mode_name, n in RESIZE_TIMING:
+        mode = rz.BICUBIC if mode_name == "bicubic" else rz.BILINEAR
+        interp_per_px = 20 if mode == rz.BICUBIC else 3  # the server's OpTimer units
+        par = BfvParams.create(n=n)
+        ev = Evaluator(par, FractionalEncoder(par.t, n), device=dev)
+        enc = Encryptor(par, KeyGenerator(par, seed=SEED).public_key(), seed=SEED)
+        row_plan, col_plan = (rz.axis_plan(IMG_HW, RESIZE_HW, mode) for _ in range(2))
+        y0, y1, lo, hi = tile_rows(row_plan, RESIZE_HW, 4)[1]
+        win = rand_residues((hi - lo, IMG_HW, 3, 2), par.q_primes, n, gen, dev)
+        rp = rz.AxisPlan(idx=row_plan.idx[y0:y1] - lo, fract=row_plan.fract[y0:y1])
+        t0 = time.perf_counter()
+        yops, xops = rz.make_fract_bundles(ev, rp, col_plan, mode, encryptor=enc)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+
+        def tile():
+            return rz.resize_tile(ev, win, rp, col_plan, yops, xops, mode, False)
+
+        bases = {}
+        launch = ntt_kernel._launch
+
+        def counting(x, dt, forward):  # launches per base, for this report only
+            key = ("q" if dt.L == par.L else "Bsk", "forward" if forward else "inverse")
+            bases[key] = bases.get(key, 0) + 1
+            return launch(x, dt, forward)
+
+        reset_launches()
+        ntt_kernel._launch = counting
+        try:
+            tile()
+        finally:
+            ntt_kernel._launch = launch
+        torch.cuda.synchronize()
+        per_tile = read_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = time_ms(tile, 3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            tile()
+            torch.cuda.synchronize()
+        ntt_ms, dev_ms = _device_times(prof)
+        interps = (y1 - y0) * RESIZE_HW * interp_per_px
+        share = (f"NTT kernels {ntt_ms:.3f} ms of {dev_ms:.3f} ms device time "
+                 f"({100 * ntt_ms / dev_ms:.1f} %), torch int64 passes and copies the rest"
+                 if dev_ms > 0 else "the profiler saw no device time: share not measured")
+        print(f"phase 5: resize {mode_name} tile, n={n}, {y1 - y0} rows x {RESIZE_HW} columns x 3, "
+              f"encrypted fracts, unrelinearized: {ms:.3f} ms per tile (CUDA events, 3 runs), "
+              f"{interps / (ms / 1e3):.1f} interps/s; fract operands on the host {host_s:.3f} s; "
+              f"NTT launches per tile {per_tile['ntt_forward']} forward, "
+              f"{per_tile['ntt_inverse']} inverse, by base {sorted(bases.items())}; {share}; "
+              f"peak device memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
+        del win, yops, xops, ev
+        torch.cuda.empty_cache()
 
 
 def kernel_work(name, x, L, n, m) -> tuple:
@@ -623,7 +839,9 @@ def main() -> int:
     phase_ntt(dev, gen, errs)
     phase_server(dev, gen, errs)
     launches = phase_main_paths(dev)
+    phase_resize_paths(dev)
     _, times = phase_timing(dev, gen, errs, card)
+    phase_resize_timing(dev, gen, card)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

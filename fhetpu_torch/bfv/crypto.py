@@ -1,11 +1,11 @@
 """Host-side BFV key generation, encryption and decryption (NumPy).
 
-A JAX-free copy of the JPEG client's part of ``fhetpu/bfv/crypto.py``: the
+A JAX-free copy of the clients' part of ``fhetpu/bfv/crypto.py``: the
 trusted client stays on the host and secret material never touches the
 device.  The code and the order of random draws are unchanged, so
-``KeyGenerator(seed=s)`` and ``Encryptor(seed=s)`` give the same keys and
-ciphertexts as fhetpu's.  Relinearization keys and the noise-budget
-measurement are not carried over yet.
+``KeyGenerator(seed=s)`` (public and relinearization keys) and
+``Encryptor(seed=s)`` give the same keys and ciphertexts as fhetpu's.  The
+noise-budget measurement is not carried over yet.
 
 Ciphertext layout everywhere: ``uint32[size, L, n]`` (or batched
 ``[B, size, L, n]``), coefficient domain unless stated otherwise.
@@ -20,6 +20,7 @@ import numpy as np
 
 from .. import native
 from ..core import modops, ntt
+from .encoder import Plaintext
 from .params import BfvParams, MAX_ERROR_MULT
 
 
@@ -105,6 +106,28 @@ class PublicKey:
         return ntt.np_ntt(self.data, self.params.tables_q)
 
 
+@dataclass
+class RelinKeys:
+    """Evaluation keys for relinearizing s^k components (k >= 2) down to
+    degree 1, using per-RNS-limb decomposition with optional 2^dbc
+    sub-digits.  keys[k] has shape uint32 [L*D, 2, L, n] (NTT domain),
+    digit order (limb i, sub-digit d): row (i, d) encrypts
+    2^(d*dbc) * w_i * s^k where w_i is the CRT basis element (1 mod p_i,
+    0 elsewhere).  digit_bits == 0 means one digit per limb (D = 1).
+    """
+
+    keys: dict  # k -> np.ndarray [L*D, 2, L, n]
+    digit_bits: int
+    params: BfvParams
+
+    @property
+    def n_subdigits(self) -> int:
+        if not self.digit_bits:
+            return 1
+        maxbits = max(int(p).bit_length() for p in self.params.q_primes)
+        return -(-maxbits // self.digit_bits)
+
+
 class KeyGenerator:
     def __init__(self, params: BfvParams, seed: Optional[int] = None):
         self.params = params
@@ -150,6 +173,54 @@ class KeyGenerator:
             data=np.stack([pk0.astype(np.uint32), a]), params=par
         )
         return self._public
+
+    def relin_keys(self, max_power: int = 2, digit_bits: Optional[int] = None) -> RelinKeys:
+        """Evaluation keys for s^2..s^max_power.
+
+        Decomposition: per RNS limb i, optionally split into ceil(bits(p_i)/
+        digit_bits) sub-digits of 2^digit_bits.  digit_bits=None means one
+        digit per limb (the common RNS keyswitch).
+        """
+        par = self.params
+        t = par.tables_q
+        L, n = par.L, par.n
+        dbc = int(digit_bits or 0)
+        if dbc < 0 or dbc > 30:
+            raise ValueError("digit_bits must be in [0, 30] (primes are < 2^30)")
+        maxbits = max(int(q).bit_length() for q in par.q_primes)
+        D = -(-maxbits // dbc) if dbc else 1
+        p = t.p.astype(np.uint64).reshape(-1, 1)
+        s_ntt = self.secret.ntt_power(1)
+        keys = {}
+        # digit factors: for limb i, w_i = qhat_i * qhat_inv_i (the CRT
+        # basis element that is 1 mod p_i, 0 elsewhere); with dbc, sub-digit
+        # d of limb i carries the extra plaintext factor 2^(d*dbc) mod p_i
+        for k in range(2, max_power + 1):
+            sk_ntt = self.secret.ntt_power(k)
+            digs = []
+            for i in range(L):
+                for d in range(D):
+                    # key pair: (-(a s + e) + 2^(d*dbc) * w_i * s^k, a), NTT
+                    a = self._uniform_rns(())
+                    a_ntt = ntt.np_ntt(a, t)
+                    e_ntt = ntt.np_ntt(
+                        _rns_lift_signed(self._gaussian((n,)), par.q_primes), t
+                    )
+                    b = (
+                        p
+                        - (
+                            a_ntt.astype(np.uint64) * s_ntt.astype(np.uint64) % p
+                            + e_ntt.astype(np.uint64)
+                        )
+                        % p
+                    ) % p
+                    pow2 = (1 << (d * dbc)) % int(par.q_primes[i]) if dbc else 1
+                    b[i] = (
+                        b[i] + np.uint64(pow2) * sk_ntt[i].astype(np.uint64)
+                    ) % p[i]
+                    digs.append(np.stack([b.astype(np.uint32), a_ntt]))
+            keys[k] = np.stack(digs)  # [L*D, 2, L, n]
+        return RelinKeys(keys=keys, digit_bits=dbc, params=par)
 
 
 class Encryptor:
@@ -229,6 +300,9 @@ class Encryptor:
                 ct[:, 0] = modops.np_addmod_b(ct[:, 0], dm, p64)
                 out[lo:hi] = ct.astype(np.uint32)
         return out
+
+    def encrypt(self, plain: Plaintext) -> np.ndarray:
+        return self.encrypt_batch(plain.coeffs[None])[0]
 
 
 class Decryptor:

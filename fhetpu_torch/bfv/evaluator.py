@@ -8,9 +8,10 @@ the NTT of the encoded constant.  Residues compute in int64 (see
 ``core/modops.py``); the NTT transforms take and return uint32, the type of
 the stream and of the kernels.
 
-Plaintext operands are built once on the host with NumPy, exactly as
-fhetpu builds them, and moved to each device once.  ct x ct multiply and
-relinearization are not ported yet.
+Plaintext operands and relinearization keys are built once on the host
+with NumPy, exactly as fhetpu builds them, and moved to each device once.
+ct x ct multiplication is the BEHZ algorithm of ``rns.py``; relinearize,
+multiply_many and exponentiate follow fhetpu's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..convert import server_arrays, server_state_from_numpy
 from ..core import modops, ntt
+from . import rns
 from .crypto import centered_lift_plain
 from .encoder import FractionalEncoder
 from .params import BfvParams
@@ -86,6 +88,33 @@ class PlainOperand:
         return self._on[device]
 
 
+class DeviceRelinKeys:
+    """Relinearization keys (NTT domain) prepared for device use.
+
+    ``host_rk`` is anything with ``keys`` ({k: uint32 [L*D, 2, L, n]}) and
+    ``digit_bits``: a ``crypto.RelinKeys`` of either package, or the arrays
+    of an ``evalkeys.npz``.  The digits per limb D come from the key's
+    shape, as in fhetpu.  ``stacked(size, device)`` concatenates
+    keys[2..size-1] along the digit axis in component order, matching the
+    evaluator's flattened (component, limb, sub-digit) digit layout, and is
+    uploaded once per (size, device) as int64.
+    """
+
+    def __init__(self, host_rk):
+        self.keys = {k: np.ascontiguousarray(v) for k, v in host_rk.keys.items()}
+        self.digit_bits = int(getattr(host_rk, "digit_bits", 0) or 0)
+        any_key = next(iter(self.keys.values()))
+        self.n_subdigits = any_key.shape[0] // any_key.shape[2]
+        self._stacked: dict = {}
+
+    def stacked(self, size: int, device) -> torch.Tensor:
+        key = (size, torch.device(device))
+        if key not in self._stacked:
+            host = np.concatenate([self.keys[k] for k in range(2, size)], axis=0)
+            self._stacked[key] = torch.from_numpy(host.astype(np.int64)).to(key[1])
+        return self._stacked[key]
+
+
 class Evaluator:
     """Holds per-params constants on one device (the card unless the caller
     passes ``device="cpu"``); all methods are pure."""
@@ -102,6 +131,7 @@ class Evaluator:
         self.tables_q = params.tables_q
         self._plain_cache: dict = {}
         self._server_states: dict = {}
+        self._rns_tool: Optional[rns.RnsTool] = None
 
     # ----- plaintext operand preparation (host, cached) ------------------
 
@@ -188,6 +218,98 @@ class Evaluator:
         d = modops.to_i64(ntt.ntt(modops.to_u32(a.data), self.tables_q))
         d = modops.mulmod_shoup(d, dev.mul_ntt, dev.mul_ntt_shoup, self.p)
         return Ct(ntt.intt(modops.to_u32(d), self.tables_q), False)
+
+    # ----- ciphertext-by-ciphertext multiplication (BEHZ) -----------------
+
+    @property
+    def rns_tool(self) -> rns.RnsTool:
+        if self._rns_tool is None:
+            self._rns_tool = rns.RnsTool(self.params, self.device)
+        return self._rns_tool
+
+    def multiply(self, a: Ct, b: Ct) -> Ct:
+        """FV multiply; sizes compose (k1, k2) -> k1+k2-1; coefficient-form
+        int64 result (SEAL 2.3 Evaluator::multiply, unrelinearized)."""
+        da = self.transform_from_ntt(a).data
+        db = da if b is a else self.transform_from_ntt(b).data
+        return Ct(rns.multiply(da, db, self.rns_tool), False)
+
+    def square(self, a: Ct) -> Ct:
+        return self.multiply(a, a)
+
+    def relinearize(self, a: Ct, rk: DeviceRelinKeys) -> Ct:
+        """Key-switch every component of degree >= 2 down to (c0, c1).
+
+        Every (component k, limb i, sub-digit d) digit polynomial is built
+        at once, goes through one batched NTT, is multiplied by its key and
+        summed, and the sum goes through one inverse NTT.  With digit_bits
+        (dbc) set on the keys, each limb splits into D sub-digits of 2^dbc;
+        the shift runs on int64, since torch has no CPU uint32 shift."""
+        size = a.size
+        if size <= 2:
+            return a
+        da = modops.to_i64(self.transform_from_ntt(a).data)
+        n = self.params.n
+        dbc, D = rk.digit_bits, rk.n_subdigits
+        comps = da[..., 2:, :, :]  # [..., K2, L, n]
+        if dbc:
+            mask = (1 << dbc) - 1
+            digs = torch.stack([(comps >> (d * dbc)) & mask for d in range(D)],
+                               dim=-2)  # [..., K2, L, D, n]
+        else:
+            digs = comps[..., None, :]  # [..., K2, L, 1, n]
+        G = (size - 2) * self.params.L * D
+        flat = digs.reshape(da.shape[:-3] + (G, 1, n))
+        # each digit value (< p_i or < 2^dbc) reduced into every limb
+        d_ntt = modops.to_i64(ntt.ntt(modops.to_u32(flat % self.p), self.tables_q))
+        key = rk.stacked(size, self.device)  # [G, 2, L, n] NTT domain
+        acc = None
+        for g in range(G):
+            term = modops.mulmod(d_ntt[..., g, None, :, :], key[g], self.p)
+            acc = term if acc is None else acc + term
+        acc = modops.to_i64(ntt.intt(modops.to_u32(acc % self.p), self.tables_q))
+        return Ct(modops.addmod(da[..., :2, :, :], acc, self.p), False)
+
+    def add_many(self, cts) -> Ct:
+        """Sum of a list of ciphertexts (SEAL Evaluator::add_many)."""
+        cts = list(cts)
+        acc = cts[0]
+        for c in cts[1:]:
+            acc = self.add(acc, c)
+        return acc
+
+    def multiply_many(self, cts, rk: Optional[DeviceRelinKeys] = None) -> Ct:
+        """Product of a list of ciphertexts (SEAL Evaluator::multiply_many),
+        relinearized after each multiply when rk is given."""
+        cts = list(cts)
+        acc = cts[0]
+        for c in cts[1:]:
+            acc = self.multiply(acc, c)
+            if rk is not None:
+                acc = self.relinearize(acc, rk)
+        return acc
+
+    def exponentiate(self, a: Ct, exponent: int,
+                     rk: Optional[DeviceRelinKeys] = None) -> Ct:
+        """a^exponent by square-and-multiply (SEAL Evaluator::exponentiate),
+        exponent >= 1; relinearizes after each multiply when rk is given."""
+        if exponent < 1:
+            raise ValueError("exponentiate requires exponent >= 1 (SEAL semantics)")
+        result = None
+        base = a
+        e = exponent
+        while True:
+            if e & 1:
+                result = base if result is None else self.multiply(result, base)
+                if rk is not None and result.size > 2:
+                    result = self.relinearize(result, rk)
+            e >>= 1
+            if e == 0:
+                break
+            base = self.square(base)
+            if rk is not None and base.size > 2:
+                base = self.relinearize(base, rk)
+        return result
 
     # linear-combination fusion helper for pipeline graphs
     def lincomb(self, terms) -> Ct:

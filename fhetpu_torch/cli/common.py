@@ -98,26 +98,33 @@ def adopt_stream_params(args, reader=None, pmod=None):
         args.pmod = pmod
 
 
-def auto_select_n(args, pipeline: str):
+def auto_select_n(args, pipeline: str, bicubic: bool = False,
+                  plain_fracts: bool = False, relin_dbc=None):
     """When --send omits --cmod, pick the smallest ring degree whose
     worst-case noise estimate survives the pipeline (SEAL 2.3's
-    ChooserEvaluator role) instead of a blind default.  Only the jpeg
-    pipeline is ported."""
+    ChooserEvaluator role) instead of a blind default.  The jpeg and resize
+    pipelines are ported."""
     if args.cmod is not None:
         return
-    if pipeline != "jpeg":
+    if pipeline not in ("jpeg", "resize"):
         raise ValueError(f"no ring-degree chooser for the {pipeline} pipeline")
     if args.pmod is None:
         args.pmod = DEFAULT_PLAIN_MODULUS
     from ..bfv import chooser, noise
 
     try:
-        par = chooser.jpeg_parameters(t=args.pmod)
+        if pipeline == "jpeg":
+            par = chooser.jpeg_parameters(t=args.pmod)
+        else:
+            par = chooser.resize_parameters(bicubic, t=args.pmod,
+                                            plain_fracts=plain_fracts,
+                                            relin_dbc=relin_dbc)
     except noise.NoiseExhausted as e:
         raise SystemExit(str(e))
     args.cmod = par.n
     print(f"[chooser] --cmod omitted: selected n={par.n} for the {pipeline}"
-          f" pipeline at t={args.pmod}", file=sys.stderr)
+          f"{' (bicubic)' if bicubic else ''} pipeline at t={args.pmod}",
+          file=sys.stderr)
 
 
 def make_params(args) -> BfvParams:

@@ -121,6 +121,14 @@ def negmod(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.where(a == 0, a, p - a)
 
 
+def mulmod(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """a*b mod p, exact, for int64 a, b in [0, 2^30) and p < 2^30: the
+    product stays below 2^60.  fhetpu's Barrett ``mulmod`` returns the same
+    value for these operands, canonical or not (the BEHZ steps feed it
+    residues of one base reduced by the primes of another)."""
+    return a * b % p
+
+
 def mulmod_shoup(x: torch.Tensor, w: torch.Tensor, w_shoup: torch.Tensor,
                  p: torch.Tensor) -> torch.Tensor:
     """x*w mod p with w_shoup = floor(w*2^32/p); x, w in [0, p), all int64.

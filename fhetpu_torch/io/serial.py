@@ -45,6 +45,10 @@ def save_public_key(path: str, data: np.ndarray):
     np.savez_compressed(path, public=data)
 
 
+def load_public_key(path: str) -> np.ndarray:
+    return np.load(path)["public"]
+
+
 # --- ciphertext streams -----------------------------------------------------
 
 

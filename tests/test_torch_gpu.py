@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from fhetpu_torch.bfv import crypto, rns
 from fhetpu_torch.bfv.encoder import FractionalEncoder
-from fhetpu_torch.bfv.evaluator import Evaluator
+from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
 from fhetpu_torch.core import dct_kernel, ntt, ntt_kernel, server_kernel
+from fhetpu_torch.pipelines import resize as rz
 from fhetpu_torch.pipelines.jpeg_encode import server_compute_fn
 
 pytestmark = pytest.mark.gpu
@@ -271,3 +273,65 @@ def test_quantize_op_on_cuda_equals_plain(cuda):
     assert after[0] > before[0] and after[1] > before[1] and after[3] > before[3]
     assert after[2] == before[2]
     assert np.array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _ntt_launches():
+    return ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
+    """rns.multiply (sizes 2x2 and 3x2) and relinearize (dbc 0 and 16) on
+    CUDA tensors run the NTT kernels on the q and Bsk bases and give the
+    residues of the same ops on the CPU, which the CPU tests hold equal to
+    fhetpu's."""
+    par = BfvParams.create(n=n, t=T)
+    kg = crypto.KeyGenerator(par, seed=n)
+    enc = crypto.Encryptor(par, kg.public_key(), seed=n + 1)
+    rng = np.random.default_rng(n)
+    a = enc.encrypt_batch(rng.integers(0, T, size=(2, n)))
+    b = _residues(rng, par.q_primes, (2, 3), n)
+    cpu, gpu = Evaluator(par, device="cpu"), Evaluator(par, device=cuda)
+    for x, y in ((a, a[::-1].copy()), (b, a)):
+        before = _ntt_launches()
+        got = rns.multiply(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda),
+                           gpu.rns_tool)
+        torch.cuda.synchronize()
+        assert all(c > p for c, p in zip(_ntt_launches(), before))
+        want = rns.multiply(torch.from_numpy(x), torch.from_numpy(y), cpu.rns_tool)
+        assert torch.equal(got.cpu(), want)
+    prod = cpu.multiply(Ct(torch.from_numpy(a)), Ct(torch.from_numpy(a[::-1].copy())))
+    for dbc in (0, 16):
+        rk = DeviceRelinKeys(kg.relin_keys(max_power=2, digit_bits=dbc))
+        before = _ntt_launches()
+        got = gpu.relinearize(Ct(prod.data.to(cuda)), rk)
+        torch.cuda.synchronize()
+        assert _ntt_launches() == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got.data.cpu(), cpu.relinearize(prod, rk).data)
+
+
+@pytest.mark.parametrize("n,mode,ch,hw", [(4096, rz.BILINEAR, 3, 4), (8192, rz.BICUBIC, 1, 4)],
+                         ids=["bilinear-4096", "bicubic-8192"])
+def test_resize_tile_on_cuda_equals_cpu(cuda, n, mode, ch, hw):
+    """One encrypted-fract resize tile (unrelinearized: size 4 bilinear,
+    size 8 bicubic) on the card gives the residues of the same tile on the
+    CPU, with the same input and fract ciphertexts."""
+    par = BfvParams.create(n=n, t=T)
+    kg = crypto.KeyGenerator(par, seed=n + 5)
+    encoder = FractionalEncoder(T, n)
+    img = np.random.default_rng(n).integers(0, 256, size=(hw, hw, ch)).astype(np.float64)
+    cts = crypto.Encryptor(par, kg.public_key(), seed=3).encrypt_batch(
+        encoder.encode_batch(img).reshape(-1, n)).reshape(hw, hw, ch, 2, par.L, n)
+    rp, cp = rz.axis_plan(hw, 2, mode), rz.axis_plan(hw, 2, mode)
+    outs = []
+    for dev in ("cpu", cuda):
+        ev = Evaluator(par, encoder, device=dev)
+        yops, xops = rz.make_fract_bundles(
+            ev, rp, cp, mode, encryptor=crypto.Encryptor(par, kg.public_key(), seed=4))
+        before = _ntt_launches()
+        outs.append(rz.resize_tile(ev, torch.from_numpy(cts).to(dev), rp, cp, yops, xops,
+                                   mode, False).cpu())
+        launched = tuple(c - p for c, p in zip(_ntt_launches(), before))
+    assert all(k > 0 for k in launched)
+    assert outs[0].shape == (2, 2, ch, 4 if mode == rz.BILINEAR else 8, par.L, n)
+    assert torch.equal(outs[0], outs[1])

@@ -1,6 +1,8 @@
 """fhetpu_torch's own copies of fhetpu's JAX-free modules against the
 originals: prime chains, fractional encoder, golden oracle, block
-utilities, JPEG codec bytes and the native host NTT.  The port imports none
+utilities, JPEG codec bytes, the native host NTT, the resize client's
+OpenCV ground truth, the BEHZ tables, the noise estimates and the ring-
+degree chooser.  The port imports none
 of the originals (tests/test_torch_cli.py::test_package_imports_without_jax),
 so each copy is held equal to its original here.  Every comparison is
 exact; inputs come from np.random.default_rng."""
@@ -13,21 +15,26 @@ import numpy as np
 import pytest
 
 from fhetpu import native as f_native
+from fhetpu.bfv import chooser as f_chooser
 from fhetpu.bfv import encoder as f_encoder
 from fhetpu.bfv import golden as f_golden
+from fhetpu.bfv import noise as f_noise
+from fhetpu.bfv import rns as f_rns
 from fhetpu.bfv.params import BfvParams as FBfvParams
 from fhetpu.codec import jpeg as f_jpeg
 from fhetpu.core import ntt as f_ntt
 from fhetpu.core import primes as f_primes
 from fhetpu.io import images as f_images
+from fhetpu.pipelines import cv_resize as f_cv_resize
 
 import fhetpu_torch
 from fhetpu_torch import native
-from fhetpu_torch.bfv import encoder, golden
+from fhetpu_torch.bfv import chooser, encoder, golden, noise, rns
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.codec import jpeg
 from fhetpu_torch.core import ntt, primes
 from fhetpu_torch.io import images
+from fhetpu_torch.pipelines import cv_resize
 from fhetpu_torch.pipelines import jpeg_encode as pipe
 
 N, T = 2048, 1 << 14
@@ -133,7 +140,66 @@ def _native(rng):
     assert np.array_equal(ix, x)
 
 
-@pytest.mark.parametrize("case", [_primes, _encoder, _golden, _images, _jpeg, _native],
-                         ids=["primes", "encoder", "golden", "images", "jpeg", "native"])
+def _cv_resize(rng):
+    """The RMS ground truth: cv2 where importable, the fixed-point model
+    and the float model, on odd sizes both ways."""
+    img = rng.integers(0, 256, size=(9, 13, 3), dtype=np.uint8)
+    for bicubic in (False, True):
+        for w2, h2 in ((5, 4), (17, 20)):
+            for name in ("cv_ground_truth", "cv_resize_fixedpoint", "cv_resize"):
+                got = getattr(cv_resize, name)(img, w2, h2, bicubic)
+                assert np.array_equal(got, getattr(f_cv_resize, name)(img, w2, h2, bicubic)), name
+
+
+def _behz(rng):
+    """Every BEHZ table (tests/test_torch_rns.py checks n=2048 and 8192)."""
+    for n in (4096, 16384):
+        ours, ref = rns.BehzConsts(BfvParams.create(n=n)), f_rns.BehzConsts(FBfvParams.create(n=n))
+        assert sorted(vars(ours)) == sorted(vars(ref))
+        for name, want in vars(ref).items():
+            got = getattr(ours, name)
+            assert type(got) is type(want) and np.array_equal(got, want), name
+
+
+def _noise(rng):
+    """The analytic estimates the servers gate on and the chooser reads."""
+    for n, t in ((2048, 1 << 14), (4096, 64), (8192, 1 << 14)):
+        par, fpar = BfvParams.create(n=n, t=t), FBfvParams.create(n=n, t=t)
+        enc = encoder.FractionalEncoder(t, n)
+        for mean in (False, True):
+            a, fa = noise.fresh(par, mean), f_noise.fresh(fpar, mean)
+            assert noise.multiply(a, a, 3, 2, mean).log2_noise == \
+                f_noise.multiply(fa, fa, 3, 2, mean).log2_noise
+            for dbc in (0, 16, 30):
+                assert noise.relinearize(a, dbc).log2_noise == f_noise.relinearize(fa, dbc).log2_noise
+            assert noise.estimate_jpeg_pipeline(par, enc, mean).log2_noise == \
+                f_noise.estimate_jpeg_pipeline(fpar, enc, mean).log2_noise
+            for bicubic in (False, True):
+                for plain in (False, True):
+                    for dbc in (None, 30):
+                        kw = dict(plain_fracts=plain, mean=mean, relin_dbc=dbc)
+                        got = noise.estimate_resize_pipeline(par, enc, bicubic, **kw)
+                        want = f_noise.estimate_resize_pipeline(fpar, enc, bicubic, **kw)
+                        assert got.log2_noise == want.log2_noise, (n, t, bicubic, kw)
+
+
+def _chooser(rng):
+    """The ring degrees the clients pick (n=4096 bilinear, 8192 bicubic,
+    2048 with plain fracts at t=2^14)."""
+    for t in (1 << 14, 64):
+        assert chooser.jpeg_parameters(t=t).n == f_chooser.jpeg_parameters(t=t).n
+        for bicubic in (False, True):
+            for plain in (False, True):
+                for dbc in (None, 30):
+                    kw = dict(t=t, plain_fracts=plain, relin_dbc=dbc)
+                    assert chooser.resize_parameters(bicubic, **kw).n == \
+                        f_chooser.resize_parameters(bicubic, **kw).n
+    assert [chooser.resize_parameters(b).n for b in (False, True)] == [4096, 8192]
+
+
+@pytest.mark.parametrize("case", [_primes, _encoder, _golden, _images, _jpeg, _native,
+                                  _cv_resize, _behz, _noise, _chooser],
+                         ids=["primes", "encoder", "golden", "images", "jpeg", "native",
+                              "cv_resize", "behz", "noise", "chooser"])
 def test_copy_equals_original(case):
     case(np.random.default_rng(31))
