@@ -71,7 +71,19 @@ Phases, each printed on its own line; any failure exits non-zero:
      decode harmonic expansion of one channel at 48x48 and n = 2048 (first
      call with the table build, the tables' NTT, calls from the cache, NTT
      launches per channel, NTT share, peak memory, bound from bytes) and
-     ms per pure-FHE pair at n = 16384.
+     ms per pure-FHE pair at n = 16384;
+  6. the measurement layer, each entry point as its user calls it, with the
+     launch counts set to 0 before each in-process one and read after:
+     a. fhetpu_torch.bench.headline at n = 2048/4096/8192/16384 (its JSON
+        line printed as it prints it, then each variant's samples); every
+        variant runs but the lazy one at n = 16384, which is refused;
+     b. fhetpu_torch.bench.noise_validation --from-artifact on all 66
+        points of bench_results/noise_validation.json: every measured
+        budget equal to the artifact's (tolerance 0), seconds per pipeline;
+     c. fhetpu_torch.bench.benchmark --quick (jpg, bilinear, bicubic at
+        n = 4096, t = 2^14, servers as subprocesses on the card): rc 0 and
+        each config's op, Encryption, Decryption and RMSError rows parsed;
+     d. fhetpu_torch.bench.decode_sweep --quick: rc 0, its rows parsed.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.  Imports neither
@@ -1174,6 +1186,132 @@ def phase_timing(dev, gen, errs, card):
     return whole, times
 
 
+NOISE_ARTIFACT = os.path.join("bench_results", "noise_validation.json")
+
+
+def _bench_module(args: list, cwd: str, timeout: int) -> subprocess.CompletedProcess:
+    """``python -m fhetpu_torch.bench.<args>`` as its user runs it, with the
+    checkout importable; its output is returned, a non-zero exit raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run([sys.executable, "-m"] + args, cwd=cwd, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    check(r.returncode == 0, f"{' '.join(args)} exited {r.returncode}:\n{r.stdout[-3000:]}"
+                             f"\n{r.stderr[-3000:]}")
+    return r
+
+
+def phase_bench():
+    """Phase 6: the measurement layer (fhetpu_torch.bench) on the card, each
+    entry point as its user calls it: the headline at the four ring
+    degrees, the noise sweep against fhetpu's committed artifact, and the
+    --quick configurations of both sweeps."""
+    import contextlib
+    import io
+
+    from fhetpu_torch.bench import analyze, headline
+    from fhetpu_torch.bench import noise_validation as nv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        # 6a: the headline, its JSON line printed as the module prints it
+        details = os.path.join(d, "bench_details_torch.json")
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = headline.main(["--device", "cuda", "--details", details])
+        launches = read_launches()
+        lines = out.getvalue().strip().splitlines()
+        check(rc == 0 and len(lines) == 1, f"headline printed {lines}")
+        print(lines[0], flush=True)
+        with open(details) as f:
+            table = json.load(f)
+        for n in DEGREES:
+            row = table["per_n"][str(n)]
+            for label, _, _ in headline.VARIANTS:
+                v = row["variants"][label]
+                refused = label == "lazy_nttfree" and n == 16384
+                check(("error" in v) == refused, f"headline n={n} {label}: {v}")
+            print(f"phase 6a: headline n={n} nb={row['nb']} ({row['bytes_in'] / 1e9:.2f} GB in): "
+                  + "; ".join(
+                      f"{label} " + ("refused" if "error" in v else
+                                     f"min {v['ms_per_op_min']:.4f} ms of "
+                                     + ", ".join(f"{s:.4f}" for s in v['ms_per_op_samples'])
+                                     + f" ({v['channel_blocks_per_s']:.1f} channel-blocks/s, "
+                                       f"{v['vs_baseline']:.2f}x SEAL)")
+                      for label, v in row["variants"].items())
+                  + f"; headline {row['headline_variant']} {row['channel_blocks_per_s']:.1f} "
+                    f"channel-blocks/s, {row['vs_baseline']:.2f}x SEAL", flush=True)
+        check(all(launches[k] > 0 for k in ("ntt_forward", "ntt_inverse", "server_ycc_dct",
+                                            "server_ycc_dct_lazy")),
+              f"headline: a kernel of its variants never launched: {launches}")
+        print(f"phase 6a: headline in {time.perf_counter() - t0:.1f} s (host clock); "
+              f"launches {launches}", flush=True)
+
+        # 6b: every point of fhetpu's noise sweep, measured on the card
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = nv.main(["--from-artifact", os.path.join(root, NOISE_ARTIFACT),
+                          "--device", "cuda"])
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+        rows = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        with open(os.path.join(root, NOISE_ARTIFACT)) as f:
+            n_points = len(json.load(f))
+        differ = [r for r in rows if not r["equal"]]
+        check(rc == 0 and len(rows) == n_points and not differ,
+              f"noise sweep: {len(rows)} of {n_points} points, differing: {differ}")
+        check(all(launches[k] > 0 for k in ("ntt_forward", "ntt_inverse", "server_ycc_dct")),
+              f"noise sweep: a kernel of its paths never launched: {launches}")
+        by_pipe = {}
+        for r in rows:
+            by_pipe[r["pipeline"]] = by_pipe.get(r["pipeline"], 0.0) + r["seconds"]
+        slowest = max(rows, key=lambda r: r["seconds"])
+        print(f"phase 6b: noise sweep, all {len(rows)} points of {NOISE_ARTIFACT} measured "
+              f"on the card: every budget equal to the artifact's (fhetpu on a TPU); "
+              f"{wall:.1f} s (host clock), by pipeline "
+              + ", ".join(f"{p} {s:.1f} s" for p, s in by_pipe.items())
+              + f"; slowest {slowest['pipeline']} n={slowest['n']} t={slowest['t']} "
+                f"{slowest['seconds']:.1f} s; launches {launches}", flush=True)
+
+        # 6c, 6d: the sweeps' --quick configurations, servers on the card as
+        # subprocesses (their launches are counted in those processes)
+        logs, work = os.path.join(d, "benchlogs"), os.path.join(d, "benchwork")
+        t0 = time.perf_counter()
+        _bench_module(["fhetpu_torch.bench.benchmark", "--quick", "--out", logs,
+                       "--workdir", work], d, 900)
+        with open(os.path.join(logs, "grid_results.json")) as f:
+            grid = {r["pipeline"]: r for r in json.load(f)}
+        op = {"jpg": "DCT", "bilinear": "Linear", "bicubic": "Cubic"}
+        for kind, label in op.items():
+            r = grid.get(kind)
+            check(r is not None and {label, "Encryption", "Decryption", "RMSError"}
+                  <= set(r["ops"]), f"benchmark --quick {kind}: rows {r}")
+        print(f"phase 6c: benchmark --quick (n=4096, t=2^14, 16x16 -> 8x8) in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + "; ".join(f"{kind} {label} {grid[kind]['ops'][label]['mean_ms']} ms/unit, "
+                          f"Encryption {grid[kind]['ops']['Encryption']['mean_ms']}, "
+                          f"Decryption {grid[kind]['ops']['Decryption']['mean_ms']}, "
+                          f"RMSError {grid[kind]['rms']}" for kind, label in op.items()),
+              flush=True)
+        dout = os.path.join(d, "decode_out")
+        t0 = time.perf_counter()
+        _bench_module(["fhetpu_torch.bench.decode_sweep", "--quick", "--out", dout,
+                       "--workdir", os.path.join(d, "decodework")], d, 900)
+        stats = analyze.parse_log(os.path.join(dout, "sweep.log"))
+        check({"Encryption", "Step", "Decryption", "RMSError"} <= set(stats),
+              f"decode_sweep --quick: rows {sorted(stats)}")
+        check(any(f.startswith("out_12_0.5.") for f in os.listdir(dout)),
+              f"decode_sweep --quick wrote {os.listdir(dout)}")
+        print(f"phase 6d: decode_sweep --quick (trusted, 48x48, n=4096, degree 12, delta 0.5) "
+              f"in {time.perf_counter() - t0:.1f} s: Step {np.mean(stats['Step']):.6g} "
+              f"ms/unit, RMSError {stats['RMSError'][0]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1210,6 +1348,7 @@ def main() -> int:
     _, times = phase_timing(dev, gen, errs, card)
     phase_resize_timing(dev, gen, card)
     phase_decode_timing(dev, card)
+    phase_bench()
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

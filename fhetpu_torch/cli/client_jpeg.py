@@ -4,10 +4,12 @@ Port of ``fhetpu/cli/client_jpeg.py``, host only: --send encrypts every
 8x8-block coefficient of an image and streams them (per block: 64 R, 64 G,
 64 B); --recieve decrypts the server's Y/Cb/Cr DCT stream, rounds,
 entropy-codes a JFIF file and prints the RMS against the jo_jpeg-equivalent
-plaintext baseline.  The secret never leaves the client.
+plaintext baseline, both files decoded by ``codec.jpeg_decode``.  The
+secret never leaves the client.
 
 The work is in ``send_array`` and ``recieve_arrays``, which take and return
-NumPy arrays; ``main`` adds the image files (PIL) around them.
+NumPy arrays; ``main`` adds the image files (PIL) around them, and
+``run_recieve`` the JFIF output and the RMS.
 
     python -m fhetpu_torch.cli.client_jpeg --send -f in.png -c c2s.bin
     python -m fhetpu_torch.cli.client_jpeg --recieve -f in.png -i s2c.bin -o out.jpg
@@ -15,6 +17,7 @@ NumPy arrays; ``main`` adds the image files (PIL) around them.
 
 from __future__ import annotations
 
+import io
 import os
 import sys
 
@@ -22,6 +25,7 @@ import numpy as np
 
 from ..bfv.crypto import Decryptor, Encryptor, KeyGenerator, SecretKey
 from ..codec import jpeg as jpeg_codec
+from ..codec.jpeg_decode import decode_baseline
 from ..core import ntt as nttmod
 from ..io import images, serial
 from .common import (OpTimer, adopt_stream_params, auto_select_n, base_parser,
@@ -126,24 +130,36 @@ def recieve_arrays(args, keep_plain: bool = False):
     return vals, (plain.reshape(nb, 3, 64, par.n) if keep_plain else None)
 
 
-def run_recieve(args):
-    w, h, _c, _pmod = serial.read_params_txt(os.path.join(args.keydir, "params.txt"))
-    vals, _ = recieve_arrays(args)
-    # reference rounding: v<0 ? ceil(v-.5) : floor(v+.5) (client_jpeg.cpp:278)
+def result_jpeg(vals: np.ndarray, w: int, h: int) -> bytes:
+    """The JFIF bytes of the decoded DCT values [nb, 3, 64]: rounded as the
+    reference does, v<0 ? ceil(v-.5) : floor(v+.5) (client_jpeg.cpp:278),
+    entropy-coded with all-ones quantization tables."""
     out_blocks = np.where(
         vals < 0, np.ceil(vals - 0.5), np.floor(vals + 0.5)
     ).astype(np.int64)
+    buf = io.BytesIO()
+    jpeg_codec.encode_coeff_blocks(buf, out_blocks, w, h, quality=0)
+    return buf.getvalue()
+
+
+def run_recieve(args, orig: np.ndarray | None = None):
+    """Decrypt the server's stream into the JFIF file ``args.outfile`` and
+    print the RMS against the jo_jpeg plaintext baseline (fhe_image.h:508-521)
+    of ``orig``, uint8 [H, W, 3] (default: the image file ``args.file``).
+    Both JFIF files are decoded by ``codec.jpeg_decode``, so no PIL is needed
+    when ``orig`` is given."""
+    w, h, _c, _pmod = serial.read_params_txt(os.path.join(args.keydir, "params.txt"))
+    vals, _ = recieve_arrays(args)
+    ours = result_jpeg(vals, w, h)
     with open(args.outfile, "wb") as f:
-        jpeg_codec.encode_coeff_blocks(f, out_blocks, w, h, quality=0)
-    # RMS vs the jo_jpeg plaintext ground truth (fhe_image.h:508-521)
-    orig = images.load_rgb(args.file)[:h, :w]  # crop like --send did
-    jo_bytes = jpeg_codec.jo_jpeg_encode(orig, quality=0)
-    jo_path = os.path.join(os.path.dirname(args.outfile) or ".", "jo_image.jpg")
-    with open(jo_path, "wb") as f:
-        f.write(jo_bytes)
-    ours = images.load_rgb(args.outfile)
-    jo = images.decode_jpeg_bytes(jo_bytes)
-    print(f"RMSError,{images.rms_error(ours, jo):.6g},")
+        f.write(ours)
+    if orig is None:
+        orig = images.load_rgb(args.file)
+    jo = jpeg_codec.jo_jpeg_encode(orig[:h, :w], quality=0)  # crop like --send did
+    with open(os.path.join(os.path.dirname(args.outfile) or ".", "jo_image.jpg"), "wb") as f:
+        f.write(jo)
+    rms = images.rms_error(decode_baseline(ours), decode_baseline(jo))
+    print(f"RMSError,{rms:.6g},")
 
 
 def parser():

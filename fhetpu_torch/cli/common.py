@@ -79,11 +79,16 @@ def resolve_device(args) -> torch.device:
                              "this server runs on torch devices: pass --device "
                              "(cuda, cuda:N or cpu)")
         args.device = "cpu"
-    dev = torch.device(args.device)
+    return device_or_exit(args.device)
+
+
+def device_or_exit(name: str) -> torch.device:
+    """``name`` as a torch.device; exits at once when it names CUDA and no
+    card is usable."""
+    dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"--device {args.device}: no CUDA device is available "
-            "(pass --device cpu to run the server op on the CPU)")
+        raise SystemExit(f"--device {name}: no CUDA device is available "
+                         "(pass --device cpu to run on the CPU)")
     return dev
 
 

@@ -387,3 +387,50 @@ def test_mul_plain_stacked_on_cuda_equals_cpu(cuda):
         outs.append(out.data.cpu())
     assert launched == (2, 0)  # the table's NTT and the ciphertext's
     assert torch.equal(outs[0], outs[1])
+
+
+def test_timing_measure_on_cuda_events(cuda):
+    """bench.timing.measure times a chain of server ops between two CUDA
+    events: a window of at least MIN_DT, sec_per_iter = dt / k, and no longer
+    than the same chain timed on the host clock up to a synchronize."""
+    import time
+
+    from fhetpu_torch.bench import timing
+
+    par = BfvParams.create(n=4096, t=T)
+    ev = Evaluator(par, FractionalEncoder(T, par.n), device=cuda)
+    fn = server_compute_fn(ev, input_ntt=True, output_ntt=True)
+    x = torch.from_numpy(_residues(np.random.default_rng(9), par.q_primes,
+                                   (8, 3, 64, 2), par.n)).to(cuda)
+    before = server_kernel.server_ycc_dct_fused.launches
+    sec, k, dt = timing.measure(fn, x, "server op", cuda, verbose=False)
+    assert sec > 0 and dt >= timing.MIN_DT and sec == pytest.approx(dt / k)
+    assert server_kernel.server_ycc_dct_fused.launches - before >= k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = x
+    for _ in range(k):
+        y = fn(y)
+    torch.cuda.synchronize()
+    assert dt <= (time.perf_counter() - t0) * 1.25  # two runs: allow their spread
+
+
+def test_noise_point_on_cuda_equals_artifact(cuda):
+    """One point of fhetpu's committed noise sweep, bilinear with encrypted
+    fracts at n = 2048, t = 64, measured through the NTT kernels: the
+    artifact's budget (5 bits) and the CPU's row."""
+    import json
+    import os
+
+    from fhetpu_torch.bench import noise_validation as nv
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "bench_results", "noise_validation.json")
+    with open(path) as f:
+        want = [r for r in nv.select(json.load(f), {"bilinear_ctct"}, {2048})
+                if r["t"] == 64][0]
+    before = _ntt_launches()
+    got = nv.run_point("bilinear_ctct", 2048, 64, device=cuda)
+    assert all(c > p for c, p in zip(_ntt_launches(), before))
+    assert got["measured_budget"] == want["measured_budget"] == 5
+    assert got == nv.run_point("bilinear_ctct", 2048, 64, device="cpu")
