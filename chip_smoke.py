@@ -76,7 +76,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      launch counts set to 0 before each in-process one and read after:
      a. fhetpu_torch.bench.headline at n = 2048/4096/8192/16384 (its JSON
         line printed as it prints it, then each variant's samples); every
-        variant runs but the lazy one at n = 16384, which is refused;
+        variant runs but the lazy one at n = 16384, which is refused; the
+        native28 rows (the lazy op on the native chain, m = 2) at n = 8192
+        and 16384, and at no other n;
      b. fhetpu_torch.bench.noise_validation --from-artifact on all 66
         points of bench_results/noise_validation.json: every measured
         budget equal to the artifact's (tolerance 0), seconds per pipeline;
@@ -103,7 +105,29 @@ Phases, each printed on its own line; any failure exits non-zero:
      d. CUDA-event times of the dp op at D = 1, 4, 8 and of the bilinear
         resize at D = 1, 4 on the one card against the unsharded paths:
         the machinery's own cost (padding, copies), not a speedup;
-     e. on a host with more than one card, (a) and (b) over distinct cards.
+     e. on a host with more than one card, (a) and (b) over distinct cards;
+  8. the last slice's modules, every launch count set to 0 before each path
+     and read after, every comparison exact:
+     a. the 48x48 image encrypted on the native chain of <= 28-bit primes
+        at n = 8192 (BfvParams.create_native: lazy m = 2 where the SEAL
+        chain gives 1) through server_compute_fn(fused_lazy=True), NTT
+        kernels in and out: the NTTs and the lazy kernel launch, the strict
+        kernel does not, and the output decrypts to the golden oracle;
+     b. the native chain at n = 16384 (L = 16), 1.61 GB of random residues:
+        the lazy kernel at m = 2 against its plain version and the strict
+        kernel, the NTT kernels on the native q against theirs, and the lazy
+        kernel's CUDA-event time beside its bound;
+     c. the four-step NTT (core/ntt4step.py, int8 products through
+        torch._int_mm) forward and inverse against the NTT kernels at the
+        four ring degrees on q;
+     d. server_compute_fn(use_fast=True) with --quantize (the lazy,
+        constant-folded network of pipelines/jpeg_fast.py) against the
+        default --quantize op at n = 4096, nb = 64: the NTT kernels launch,
+        no JPEG kernel; both CUDA-event times;
+     e. python -m fhetpu_torch.bench.core --only
+        ntt_sweep,ntt_fwd,ntt_inv,behz,relinearize,linear,harmonics_order16
+        under its own timeout: rc 0 and every section present, its numbers
+        printed.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.  Imports neither
@@ -385,13 +409,30 @@ def _float_dct(block8):
 
 
 def _golden(encoder, img, quant=None):
-    """[nb, 3, 64, n] plaintext coefficients of YCC -> DCT (-> quantize)."""
-    from fhetpu_torch.bfv.golden import GoldenEvaluator
+    """[nb, 3, 64, n] plaintext coefficients of YCC -> DCT (-> quantize),
+    the blocks split over one spawned process per CPU core (at most 8): the
+    golden network is single-threaded NumPy, minutes for 36 blocks at
+    n = 8192 in one process."""
+    import concurrent.futures
+    import multiprocessing
+
     from fhetpu_torch.io import images
-    from fhetpu_torch.pipelines import jpeg_encode as pipe
 
     blocks = np.stack(
         [images.split_blocks(img[..., c].astype(np.float64)) for c in range(3)], axis=1)
+    parts = np.array_split(blocks, min(8, os.cpu_count() or 1, len(blocks)))
+    with concurrent.futures.ProcessPoolExecutor(
+            len(parts), mp_context=multiprocessing.get_context("spawn")) as pool:
+        outs = list(pool.map(_golden_blocks, [encoder] * len(parts), parts,
+                             [quant] * len(parts)))
+    return np.concatenate(outs)
+
+
+def _golden_blocks(encoder, blocks, quant):
+    """_golden's network on pixel blocks [nb, 3, 64]."""
+    from fhetpu_torch.bfv.golden import GoldenEvaluator
+    from fhetpu_torch.pipelines import jpeg_encode as pipe
+
     coeffs = encoder.encode_batch(blocks)  # [nb, 3, 64, n]
     gev = GoldenEvaluator(encoder)
     ycc = pipe.rgb_to_ycc(gev, coeffs[:, 0], coeffs[:, 1], coeffs[:, 2])
@@ -923,6 +964,27 @@ def _device_times(prof) -> tuple:
     return ntt_us / 1e3, all_us / 1e3
 
 
+def _profile(fn) -> str:
+    """One call of fn under torch.profiler: its device time, the number of
+    device kernels it ran and their mean time, against the host clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sum(evt.count for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA)
+    dev_ms = _device_times(prof)[1]
+    if not kernels or dev_ms <= 0:
+        return "the profiler saw no device time: not measured"
+    return (f"profiled call: {dev_ms:.3f} ms device time in {kernels} kernels "
+            f"({1e3 * dev_ms / kernels:.1f} us each) against {wall:.3f} ms host clock")
+
+
 def phase_resize_timing(dev, gen, card):
     """CUDA-event ms of one resize tile (4 output rows x 17 columns, the
     server's default tile, over a source window of random residues) for the
@@ -1264,6 +1326,18 @@ def phase_bench():
                       for label, v in row["variants"].items())
                   + f"; headline {row['headline_variant']} {row['channel_blocks_per_s']:.1f} "
                     f"channel-blocks/s, {row['vs_baseline']:.2f}x SEAL", flush=True)
+            nat = row.get("native28")
+            check((nat is not None) == (n in (NATIVE_N, NATIVE_BIG))
+                  and (nat is None or (nat["m"], nat["nb"]) == (2, row["nb"])),
+                  f"headline n={n}: native28 block {nat}")
+            if nat is not None:
+                v = nat["variants"]["native28_lazy_nttfree"]
+                print(f"phase 6a: headline n={n} native28 (L={nat['L']}, m={nat['m']}, "
+                      f"{nat['bytes_in'] / 1e9:.2f} GB in, not SEAL-parity): lazy NTT-free min "
+                      f"{v['ms_per_op_min']:.4f} ms of "
+                      + ", ".join(f"{s:.4f}" for s in v["ms_per_op_samples"])
+                      + f" ({nat['channel_blocks_per_s']:.1f} channel-blocks/s, "
+                        f"{nat['vs_baseline']:.2f}x SEAL)", flush=True)
         check(all(launches[k] > 0 for k in ("ntt_forward", "ntt_inverse", "server_ycc_dct",
                                             "server_ycc_dct_lazy")),
               f"headline: a kernel of its variants never launched: {launches}")
@@ -1615,6 +1689,192 @@ def phase_sharded(dev, card):
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
 
 
+NATIVE_N = 8192  # the ring degree where the native chain raises the lazy kernel's m from 1 to 2
+NATIVE_BIG = 16384  # where the SEAL chain refuses the lazy kernel and the native one takes it
+NATIVE_BIG_NB = 4  # 4 x 3 x 64 x 2 x 16 x 16384 x 4 B = 1.61 GB in, as at every n
+NTT4_BATCH = 8
+BENCH_CORE_ONLY = "ntt_sweep,ntt_fwd,ntt_inv,behz,relinearize,linear,harmonics_order16"
+BENCH_CORE_TIMEOUT = 300
+
+
+def phase_native_fast(dev, gen, errs, card):
+    """Phase 8: the modules of the port's last slice on the card, every
+    launch count set to 0 just before each path and read just after, every
+    comparison exact: (a) the 48x48 image on the native n=8192 chain
+    through the lazy JPEG op; (b) the lazy kernel at n=16384 on the native
+    chain; (c) the four-step NTT against the NTT kernels; (d) the fast
+    network's --quantize op against the default one; (e) bench.core."""
+    import torch
+    from fhetpu_torch.bfv import crypto
+    from fhetpu_torch.bfv.encoder import FractionalEncoder
+    from fhetpu_torch.bfv.evaluator import Evaluator
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
+    from fhetpu_torch.core import ntt, ntt4step, ntt_kernel, server_kernel
+    from fhetpu_torch.io import images
+    from fhetpu_torch.pipelines.jpeg_encode import server_compute_fn
+
+    t_phase = time.perf_counter()
+    # (a) the image on the native n=8192 chain, NTT kernels in and out
+    par = BfvParams.create_native(n=NATIVE_N)
+    encoder = FractionalEncoder(par.t, par.n)
+    ev = Evaluator(par, encoder, device=dev)
+    m = server_kernel.lazy_bound_multiple(ev)
+    seal_m = server_kernel.lazy_bound_multiple(Evaluator(BfvParams.create(n=NATIVE_N), device=dev))
+    check((m, seal_m) == (2, 1), f"native n={NATIVE_N}: m={m}, SEAL chain m={seal_m}")
+    img = np.random.default_rng(SEED).integers(0, 256, size=(IMG_HW, IMG_HW, 3), dtype=np.uint8)
+    nb = (IMG_HW // 8) ** 2
+    kg = crypto.KeyGenerator(par, seed=SEED)
+    blocks = np.stack([images.split_blocks(img[..., c].astype(np.float64)) for c in range(3)],
+                      axis=1)
+    t0 = time.perf_counter()
+    cts = crypto.Encryptor(par, kg.public_key(), seed=SEED + 1).encrypt_batch(
+        encoder.encode_batch(blocks).reshape(-1, par.n))
+    t_enc = time.perf_counter() - t0
+    x = torch.from_numpy(cts.reshape(nb, 3, 64, 2, par.L, par.n)).to(dev)
+    op = server_compute_fn(ev, fused_lazy=True)
+    reset_launches()
+    out = op(x)
+    torch.cuda.synchronize()
+    lazy_path = read_launches()
+    check(all(lazy_path[k] > 0 for k in ("ntt_forward", "server_ycc_dct_lazy", "ntt_inverse"))
+          and lazy_path["server_ycc_dct"] == 0,
+          f"native lazy JPEG op: launches {lazy_path}")
+    t0 = time.perf_counter()
+    plain = crypto.Decryptor(par, kg.secret).decrypt_batch(
+        out.cpu().numpy().reshape(-1, 2, par.L, par.n)).reshape(nb, 3, 64, par.n)
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = _golden(encoder, img)
+    t_gold = time.perf_counter() - t0
+    check(np.array_equal(plain, want),
+          f"native n={NATIVE_N} lazy JPEG op: decrypted coefficients differ from the golden oracle")
+    print(f"phase 8a: native chain n={par.n} (L={par.L}, primes <= "
+          f"{max(p.bit_length() for p in par.q_primes)} bits, lazy m={m} against the SEAL "
+          f"chain's {seal_m}), {IMG_HW}x{IMG_HW} image: lazy JPEG op, NTT kernels in and out, "
+          f"decrypts to exactly the golden oracle; launches {lazy_path}; host encryption "
+          f"{t_enc:.3f} s, decryption {t_dec:.3f} s, golden oracle {t_gold:.3f} s", flush=True)
+    del x, out, ev
+    torch.cuda.empty_cache()
+
+    # (b) the lazy kernel at n=16384 on the native chain, 1.61 GB of random residues
+    par = BfvParams.create_native(n=NATIVE_BIG)
+    ev = Evaluator(par, device=dev)
+    m = server_kernel.lazy_bound_multiple(ev)
+    check(m == 2, f"native n={NATIVE_BIG}: m={m}")
+    st = ev.server_state(dev)
+    x = rand_residues((NATIVE_BIG_NB, 3, 64, 2), par.q_primes, par.n, gen, dev)
+    reset_launches()
+    lazy = server_kernel.server_ycc_dct_fused(ev, x, lazy=True)
+    torch.cuda.synchronize()
+    launches = read_launches()["server_ycc_dct_lazy"]
+    e = max_abs_err(lazy, server_kernel.server_ycc_dct_lazy_plain(x, st, m))
+    errs["server_ycc_dct_lazy"] = max(errs["server_ycc_dct_lazy"], e)
+    check(e == 0, f"lazy kernel vs plain at native n={NATIVE_BIG}: {e}")
+    check(max_abs_err(lazy, server_kernel.server_ycc_dct_fused(ev, x)) == 0,
+          f"lazy kernel vs strict kernel at native n={NATIVE_BIG}")
+    del lazy
+    polys = x[0, 0].reshape(-1, par.L, par.n)  # 128 polynomials of the native q
+    fk = ntt_kernel.ntt_forward(polys, st.ntt)
+    ik = ntt_kernel.ntt_inverse(fk, st.ntt)
+    ef = max_abs_err(fk, ntt_kernel.ntt_plain(polys, st.ntt))
+    ei = max_abs_err(ik, ntt_kernel.intt_plain(fk, st.ntt))
+    errs["ntt_forward"], errs["ntt_inverse"] = (max(errs["ntt_forward"], ef),
+                                                max(errs["ntt_inverse"], ei))
+    check(ef == 0 and ei == 0 and max_abs_err(ik, polys) == 0,
+          f"NTT kernels vs plain on the native q at n={NATIVE_BIG}: {ef}, {ei}")
+    torch.cuda.empty_cache()
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k_ms = time_ms(lambda: server_kernel.server_ycc_dct_fused(ev, x, lazy=True), 10)
+    s_ms = time_ms(lambda: server_kernel.server_ycc_dct_fused(ev, x), 10)
+    nbytes, ops = kernel_work("server_ycc_dct_lazy", x, par.L, par.n, m)
+    t_bytes, t_ops = bound_times(nbytes, ops, sms, clock_hz)
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"phase 8b: native chain n={par.n} (L={par.L}), nb={NATIVE_BIG_NB} "
+          f"({x.numel() * 4 / 1e9:.3f} GB in): lazy kernel (m={m}) bit-equal to its plain "
+          f"version and to the strict kernel, {launches} launch; NTT kernels on the native q "
+          f"bit-equal to plain, roundtrip exact; lazy kernel {k_ms:.3f} ms, strict kernel "
+          f"{s_ms:.3f} ms (CUDA events, 10 runs); bound {b_ms:.3f} ms by {b_by} (HBM "
+          f"{t_bytes:.3f} ms, integer {t_ops:.3f} ms; {100 * b_ms / k_ms:.1f} % of it reached) "
+          f"[{card}]", flush=True)
+    del x, st, ev
+    torch.cuda.empty_cache()
+
+    # (c) the four-step NTT (int8 tensor-core products) against the NTT kernels
+    shapes = []
+    for n in DEGREES:
+        tables = BfvParams.create(n=n).tables_q
+        x = rand_residues((NTT4_BATCH,), tables.primes, n, gen, dev)
+        fx = ntt.ntt(x, tables)
+        check(torch.equal(ntt4step.ntt4(x, tables, True), fx), f"ntt4 forward at n={n}")
+        check(torch.equal(ntt4step.ntt4(fx, tables, False), ntt.intt(fx, tables)),
+              f"ntt4 inverse at n={n}")
+        ft = ntt4step.get_fourstep(tables.primes, n)
+        shapes.append(f"n={n} A*B={ft.A}*{ft.B} L={len(tables.primes)}")
+    tables = BfvParams.create(n=TIMING_N).tables_q
+    x = rand_residues((64,), tables.primes, TIMING_N, gen, dev)
+    print(f"phase 8c: four-step NTT, forward and inverse, bit-equal to the NTT kernels on q, "
+          f"{NTT4_BATCH} polynomials at {'; '.join(shapes)}; forward at n={TIMING_N}, B=64: "
+          f"{_profile(lambda: ntt4step.ntt4(x, tables, True))} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) the fast network's --quantize op against the default one
+    par = BfvParams.create(n=TIMING_N)
+    ev = Evaluator(par, device=dev)
+    quant = build_quant_tables(0)[0][ZIGZAG].astype(np.float64)
+    x = rand_residues((TIMING_NB, 3, 64, 2), par.q_primes, par.n, gen, dev)
+    default = server_compute_fn(ev, apply_quantize=True, quant=quant)
+    fast = server_compute_fn(ev, apply_quantize=True, quant=quant, use_fast=True)
+    want = default(x)
+    reset_launches()
+    got = fast(x)
+    torch.cuda.synchronize()
+    fast_path = read_launches()
+    check(torch.equal(got, want), "fast --quantize op differs from the default one")
+    check(fast_path["ntt_forward"] > 0 and fast_path["ntt_inverse"] > 0
+          and all(fast_path[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy", "dct8x8")),
+          f"fast --quantize op: launches {fast_path}")
+    del want, got
+    torch.cuda.empty_cache()
+    d_ms = time_ms(lambda: default(x), 3)
+    torch.cuda.empty_cache()
+    f_ms = time_ms(lambda: fast(x), 3)
+    print(f"phase 8d: --quantize op, n={par.n} nb={TIMING_NB}: use_fast=True bit-equal to the "
+          f"default (torch YCC, DCT-only kernel, torch quantize); launches {fast_path}; default "
+          f"{d_ms:.3f} ms, fast {f_ms:.3f} ms (CUDA events, 3 runs); fast {_profile(lambda: fast(x))}; "
+          f"default {_profile(lambda: default(x))} [{card}]", flush=True)
+    del x, ev
+    torch.cuda.empty_cache()
+
+    # (e) bench.core as its user runs it, under its own timeout
+    labels = ("ntt_fwd_kernel", "ntt_inv_kernel", "behz_multiply", "relinearize",
+              "linear_plainfract", "harmonics_order16")
+    with tempfile.TemporaryDirectory() as d:
+        out_path = os.path.join(d, "bench_core_torch.json")
+        t0 = time.perf_counter()
+        _bench_module(["fhetpu_torch.bench.core", "--only", BENCH_CORE_ONLY, "--out", out_path],
+                      d, BENCH_CORE_TIMEOUT)
+        with open(out_path) as f:
+            res = json.load(f)
+    secs = time.perf_counter() - t0
+    check(set(labels) <= set(res["ops"]) and set(res["ntt_sweep"]) == {"16", "64", "256", "1024"}
+          and all(set(r) == {"kernel", "fourstep_int8"} for r in res["ntt_sweep"].values()),
+          f"bench.core: sections {sorted(res['ops'])}, sweep {res['ntt_sweep']}")
+    print(f"phase 8e: bench.core --only {BENCH_CORE_ONLY} rc 0 in {secs:.1f} s, every section "
+          f"present; {res['device']}; NTT launches {res['ntt_launches']}", flush=True)
+    for B, row in res["ntt_sweep"].items():
+        print(f"phase 8e: ntt_sweep B={B} (n={res['n']}, L={res['L']}): " + "; ".join(
+            f"{col} {v['us_per_call']:.2f} us, {v['ntts_per_s']:.1f} NTTs/s, "
+            f"{v['achieved_gb_per_s']:.2f} of {v['peak_gb_per_s']} GB/s" for col, v in row.items()),
+            flush=True)
+    for label in labels:
+        print(f"phase 8e: {label}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else
+                                               f"{k} {v}" for k, v in res["ops"][label].items()),
+              flush=True)
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1653,6 +1913,7 @@ def main() -> int:
     phase_decode_timing(dev, card)
     phase_bench()
     phase_sharded(dev, card)
+    phase_native_fast(dev, gen, errs, card)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

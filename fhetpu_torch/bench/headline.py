@@ -27,8 +27,17 @@ n = 4096 (the CLI's ``--chunk-blocks``), 256 at 2048, 16 at 8192 and 4 at
 Each variant is chained in its own domain through ``timing.measure``
 ``REPEATS`` = 3 times; the per-n headline is the fastest NTT-free variant's
 minimum sample (``"headline_estimator": "min"``: interference only slows a
-sample).  fhetpu's ``_bench_native28`` rows are not ported
-(``BfvParams.create_native`` is on ROADMAP's "Not to port" list).
+sample).
+
+fhetpu's ``native28`` rows: at each n where the native chain of <= 28-bit
+primes (``BfvParams.create_native``, the same total modulus bits and
+security, not SEAL-parity) gives the lazy kernel a higher bound multiple
+than the SEAL chain (n = 8192: m 1 -> 2; n = 16384: refused -> m = 2), the
+lazy NTT-free op is timed on that chain over random residues below its
+primes at the same nb (1.61 GB at n = 16384, L = 16) and recorded under
+``per_n[n]["native28"]``.  They stay out of the per-n headline and the
+JSON line, which are SEAL-chain only, as in fhetpu.  fhetpu's c512/c1024
+lane chunks were a VMEM tiling, so there is one row per n.
 
     python -m fhetpu_torch.bench.headline [--device cuda] [--ns 2048,4096,8192,16384]
         [--blocks NB] [--details bench_details_torch.json]
@@ -87,9 +96,54 @@ def random_residues(par: BfvParams, nb: int, device) -> torch.Tensor:
     return x
 
 
+def _time_variant(fn, x, label: str, n: int, nb: int, device: torch.device) -> dict:
+    """``REPEATS`` chained samples of ``fn`` on x: the minimum, median and
+    every sample, channel-blocks/s and vs_baseline of the minimum."""
+    runs = [measure(fn, x, f"n{n}:{label}#{rep}", device) for rep in range(REPEATS)]
+    samples = sorted(s for s, _, _ in runs)
+    cbs = nb * 3 / samples[0]
+    return {
+        "vs_baseline": cbs / (1000.0 / BASELINE_DCT_MS[n]),
+        "ms_per_op_min": samples[0] * 1e3,
+        "ms_per_op_median": samples[len(samples) // 2] * 1e3,
+        "ms_per_op_samples": [s * 1e3 for s, _, _ in runs],
+        "channel_blocks_per_s": cbs,
+        "k": [k for _, k, _ in runs],
+        "measured_dt_s": [dt for _, _, dt in runs],
+    }
+
+
+def _release(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def native28_row(n: int, nb: int, m_seal: int, device: torch.device):
+    """fhetpu's native28 block at n: the lazy NTT-free op on the native
+    chain, or None where that chain gives the lazy kernel no higher bound
+    multiple than the SEAL chain's ``m_seal``."""
+    par = BfvParams.create_native(n=n, t=1 << 14)
+    ev = Evaluator(par, FractionalEncoder(par.t, par.n), device=device)
+    m = lazy_bound_multiple(ev)
+    if m <= m_seal:
+        return None
+    x = random_residues(par, nb, device)
+    label = "native28_lazy_nttfree"
+    v = _time_variant(server_compute_fn(ev, input_ntt=True, output_ntt=True, fused_lazy=True),
+                      x, label, n, nb, device)
+    row = {"L": par.L, "m": m, "nb": nb, "bytes_in": x.numel() * 4,
+           "note": "non-SEAL-parity chain, same total modulus bits / security",
+           "variants": {label: v}, "channel_blocks_per_s": v["channel_blocks_per_s"],
+           "vs_baseline": v["vs_baseline"]}
+    del x
+    _release(device)
+    return row
+
+
 def bench_one_n(n: int, nb: int, device: torch.device) -> dict:
     """The per-n row: every variant's samples, the headline variant, its
-    channel-blocks/s and vs_baseline."""
+    channel-blocks/s and vs_baseline, and the native28 block where it
+    applies."""
     par = BfvParams.create(n=n, t=1 << 14)
     ev = Evaluator(par, FractionalEncoder(par.t, par.n), device=device)
     x = random_residues(par, nb, device)
@@ -99,32 +153,23 @@ def bench_one_n(n: int, nb: int, device: torch.device) -> dict:
     for label, ntt_form, lazy in VARIANTS:
         fn = server_compute_fn(ev, input_ntt=ntt_form, output_ntt=ntt_form, fused_lazy=lazy)
         try:
-            runs = [measure(fn, x, f"n{n}:{label}#{rep}", device) for rep in range(REPEATS)]
+            row["variants"][label] = _time_variant(fn, x, label, n, nb, device)
         except ValueError as e:
             if not lazy or lazy_bound_multiple(ev):
                 raise
             row["variants"][label] = {"error": str(e)}  # refused, as in fhetpu
             print(f"[bench] n={n} {label} refused: {e}", file=sys.stderr)
             continue
-        samples = sorted(s for s, _, _ in runs)
-        cbs = nb * 3 / samples[0]
-        row["variants"][label] = {
-            "vs_baseline": cbs / (1000.0 / BASELINE_DCT_MS[n]),
-            "ms_per_op_min": samples[0] * 1e3,
-            "ms_per_op_median": samples[len(samples) // 2] * 1e3,
-            "ms_per_op_samples": [s * 1e3 for s, _, _ in runs],
-            "channel_blocks_per_s": cbs,
-            "k": [k for _, k, _ in runs],
-            "measured_dt_s": [dt for _, _, dt in runs],
-        }
         if ntt_form:
-            best[label] = cbs
+            best[label] = row["variants"][label]["channel_blocks_per_s"]
     del x
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _release(device)
     label = max(best, key=best.get)
     row.update(headline_variant=label, channel_blocks_per_s=best[label],
                vs_baseline=row["variants"][label]["vs_baseline"])
+    native = native28_row(n, nb, lazy_bound_multiple(ev), device)
+    if native is not None:
+        row["native28"] = native
     return row
 
 
@@ -153,6 +198,11 @@ def main(argv=None) -> int:
         print(f"[bench] n={n} nb={d['nb']}: {d['channel_blocks_per_s']:.2f} channel-blocks/s "
               f"({d['vs_baseline']:.2f}x baseline, {d['headline_variant']}; with_ntt "
               f"{d['variants']['with_ntt']['vs_baseline']:.2f}x); {where}", file=sys.stderr)
+        if "native28" in d:
+            nat = d["native28"]
+            print(f"[bench] n={n} native28 (L={nat['L']}, m={nat['m']}, not SEAL-parity): "
+                  f"{nat['channel_blocks_per_s']:.2f} channel-blocks/s "
+                  f"({nat['vs_baseline']:.2f}x baseline); {where}", file=sys.stderr)
     n_head = HEADLINE_N if HEADLINE_N in ns else ns[0]
     head = details["per_n"][str(n_head)]
     print(json.dumps({

@@ -12,7 +12,8 @@ A parameter set fixes:
 
 Everything derived (NTT tables, Barrett constants, CRT punctured products,
 Delta = floor(q/t) in RNS) is computed once per parameter set and cached.
-fhetpu's opt-in ``create_native`` chain is not carried over.
+``create_native`` is fhetpu's opt-in chain of <= 28-bit primes, on which the
+lazy fused server kernel runs at every ring degree.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import modops, ntt
-from ..core.primes import default_aux_modulus, default_coeff_modulus_128
+from ..core.primes import (default_aux_modulus, default_coeff_modulus_128, gen_ntt_primes,
+                           native_coeff_modulus_128)
 
 DEFAULT_PLAIN_MODULUS = 1 << 14  # fhe_image.h:26
 DEFAULT_POLY_DEGREE = 8192  # fhe_image.h:27 (named COEFF_MODULUS there)
@@ -52,6 +54,24 @@ class BfvParams:
         q = default_coeff_modulus_128(n)
         b, m_sk = default_aux_modulus(n)
         return BfvParams(n=n, t=t, q_primes=q, b_primes=b, m_sk=m_sk, dbc=dbc, sigma=sigma)
+
+    @staticmethod
+    def create_native(
+        n: int = DEFAULT_POLY_DEGREE,
+        t: int = DEFAULT_PLAIN_MODULUS,
+        dbc: int = DEFAULT_DBC,
+        sigma: float = DEFAULT_SIGMA,
+    ) -> "BfvParams":
+        """Opt-in native chain: the SEAL 2.3 total modulus bit budget (same
+        128-bit security) split into <= 28-bit primes, so every prime leaves
+        >= 16p of u32 headroom and the lazy fused server kernel runs with
+        m = 2 at every ring degree (``core/primes.py``
+        ``native_coeff_modulus_128``).  NOT SEAL-parity."""
+        q = native_coeff_modulus_128(n)
+        L = len(q)
+        aux = gen_ntt_primes(30, L + 2, exclude=q)
+        return BfvParams(n=n, t=t, q_primes=q, b_primes=tuple(aux[:L + 1]),
+                         m_sk=aux[L + 1], dbc=dbc, sigma=sigma)
 
     # ----- basic derived quantities -------------------------------------
 

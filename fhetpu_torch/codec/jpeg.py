@@ -1,11 +1,11 @@
 """Host-side baseline JPEG codec: tables, Huffman entropy coder, JFIF writer,
 and a jo_jpeg-equivalent plaintext encoder used as the RMS oracle.
 
-The port's own copy of the part of ``fhetpu/codec/jpeg.py`` that the JPEG
-client and server use (``ZIGZAG``, ``build_quant_tables``,
-``encode_coeff_blocks``, ``jo_jpeg_encode`` and what they call); tests
-hold the bytes it writes equal to the original's.  The jpge-equivalent
-configurable encoder is not carried over: nothing in the port calls it.
+The port's own copy of ``fhetpu/codec/jpeg.py``: the part the JPEG client
+and server use (``ZIGZAG``, ``build_quant_tables``, ``encode_coeff_blocks``,
+``jo_jpeg_encode`` and what they call) and the jpge-equivalent configurable
+encoder (``jpge_encode``); tests hold the bytes it writes equal to the
+original's.
 
 TPU-native counterpart of SURVEY.md C6 (fhe_image.h:331-397 entropy coding +
 constant tables) and C21 (vendored jo_jpeg, the reference's RMS ground truth
@@ -364,5 +364,169 @@ def jo_jpeg_encode(rgb: np.ndarray, quality: int = 0) -> bytes:
                     dcu = process_block(bw, zz, dcu, UVDC_HT, UVAC_HT)
                 else:
                     dcv = process_block(bw, zz, dcv, UVDC_HT, UVAC_HT)
+    write_trailer(bw)
+    return out.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# jpge-equivalent configurable encoder (SURVEY.md C22: vendored jpge.h, the
+# quality + chroma-subsampling JPEG library consumed by the reference's
+# unbuilt tests/encode.cpp, which encodes a 16x16 grayscale text image with
+# jpge::Y_ONLY at quality 90).  Supports jpge's four subsampling_t modes
+# (include/jpge.h:42): Y_ONLY (grayscale), H1V1 (YCbCr 1x1x1), H2V1
+# (YCbCr 2x1x1), H2V2 (YCbCr 4x1x1) with the IJG quality->table mapping
+# and jpge's no_chroma_discrim option (luma table for chroma).
+# ---------------------------------------------------------------------------
+
+Y_ONLY, H1V1, H2V1, H2V2 = 0, 1, 2, 3
+
+
+def _ijg_quant_tables(quality: int, no_chroma_discrim: bool):
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    yt = np.clip((YQT * scale + 50) // 100, 1, 255).astype(np.uint8)
+    ct = yt if no_chroma_discrim else np.clip(
+        (UVQT * scale + 50) // 100, 1, 255).astype(np.uint8)
+    ytab = np.zeros(64, dtype=np.uint8)
+    ctab = np.zeros(64, dtype=np.uint8)
+    ytab[ZIGZAG] = yt
+    ctab[ZIGZAG] = ct
+    return ytab, ctab
+
+
+def _fdtbl(tab: np.ndarray) -> np.ndarray:
+    f = np.float32
+    out = np.zeros(64, dtype=np.float32)
+    for row in range(8):
+        for col in range(8):
+            k = row * 8 + col
+            out[k] = f(1.0) / (f(tab[ZIGZAG[k]]) * AASF[row] * AASF[col])
+    return out
+
+
+def _encode_du(bw, du, fdtbl, dc_prev, htdc, htac):
+    """AAN DCT + quantize + zigzag + entropy-encode one 8x8 float block."""
+    du = du.astype(np.float32).copy()
+    for rr in range(8):
+        du[rr] = _jo_dct8(du[rr])
+    for cc in range(8):
+        du[:, cc] = _jo_dct8(du[:, cc])
+    vals = du.reshape(64) * fdtbl
+    zz = np.zeros(64, dtype=np.int64)
+    for j in range(64):
+        v = float(vals[j])
+        zz[ZIGZAG[j]] = int(np.floor(v + 0.5)) if v > 0 else int(np.ceil(v - 0.5))
+    return process_block(bw, zz, dc_prev, htdc, htac)
+
+
+def _jpge_headers(fp, width, height, ytab, ctab, subsampling):
+    gray = subsampling == Y_ONLY
+    fp.write(bytes([0xFF, 0xD8, 0xFF, 0xE0, 0, 0x10, ord("J"), ord("F"),
+                    ord("I"), ord("F"), 0, 1, 1, 0, 0, 1, 0, 1, 0, 0]))
+    # DQT
+    fp.write(bytes([0xFF, 0xDB, 0, (0x43 if gray else 0x84), 0]))
+    fp.write(bytes(ytab.tolist()))
+    if not gray:
+        fp.write(bytes([1]))
+        fp.write(bytes(ctab.tolist()))
+    # SOF0: per-component sampling factors
+    yfac = {Y_ONLY: 0x11, H1V1: 0x11, H2V1: 0x21, H2V2: 0x22}[subsampling]
+    ncomp = 1 if gray else 3
+    fp.write(bytes([0xFF, 0xC0, 0, 8 + 3 * ncomp, 8,
+                    (height >> 8) & 0xFF, height & 0xFF,
+                    (width >> 8) & 0xFF, width & 0xFF, ncomp]))
+    fp.write(bytes([1, yfac, 0]))
+    if not gray:
+        fp.write(bytes([2, 0x11, 1, 3, 0x11, 1]))
+    # DHT
+    def dht(cls_id, nrcodes, values):
+        data = bytes(nrcodes[1:]) + bytes(values)
+        fp.write(bytes([0xFF, 0xC4, (len(data) + 3) >> 8, (len(data) + 3) & 0xFF,
+                        cls_id]))
+        fp.write(data)
+
+    dht(0x00, STD_DC_LUM_NRCODES, STD_DC_LUM_VALUES)
+    dht(0x10, STD_AC_LUM_NRCODES, STD_AC_LUM_VALUES)
+    if not gray:
+        dht(0x01, STD_DC_CHR_NRCODES, STD_DC_CHR_VALUES)
+        dht(0x11, STD_AC_CHR_NRCODES, STD_AC_CHR_VALUES)
+    # SOS
+    if gray:
+        fp.write(bytes([0xFF, 0xDA, 0, 8, 1, 1, 0x00, 0, 0x3F, 0]))
+    else:
+        fp.write(bytes([0xFF, 0xDA, 0, 0xC, 3, 1, 0x00, 2, 0x11, 3, 0x11,
+                        0, 0x3F, 0]))
+
+
+def jpge_encode(img: np.ndarray, quality: int = 85,
+                subsampling: int = H2V2,
+                no_chroma_discrim: bool = False) -> bytes:
+    """jpge::compress_image_to_jpeg_file_in_memory equivalent.
+
+    img: [H, W] or [H, W, 1] grayscale, or [H, W, 3] RGB uint8 (any size;
+    edges replicate like jpge's block loader).  subsampling: Y_ONLY / H1V1 /
+    H2V1 / H2V2 (include/jpge.h:42; H2V2 is jpge's default params()).
+    """
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W = img.shape[:2]
+    f = np.float32
+    if img.shape[2] == 1:
+        ych = img[..., 0].astype(np.float32) - f(128.0)
+        uch = vch = None
+        if subsampling != Y_ONLY:
+            uch = np.zeros_like(ych)
+            vch = np.zeros_like(ych)
+    else:
+        rgbf = img.astype(np.float32)
+        r, g, b = rgbf[..., 0], rgbf[..., 1], rgbf[..., 2]
+        ych = (f(0.29900) * r + f(0.58700) * g + f(0.11400) * b) - f(128.0)
+        uch = f(-0.16874) * r - f(0.33126) * g + f(0.50000) * b
+        vch = f(0.50000) * r - f(0.41869) * g - f(0.08131) * b
+        if subsampling == Y_ONLY:
+            uch = vch = None
+
+    ytab, ctab = _ijg_quant_tables(quality, no_chroma_discrim)
+    fdy, fdc = _fdtbl(ytab), _fdtbl(ctab)
+    out = io.BytesIO()
+    _jpge_headers(out, W, H, ytab, ctab, subsampling)
+    bw = BitWriter(out)
+
+    def pad_to(chan, h, w):
+        """Edge-replicate to [h, w] (jpge clamps block loads at the edge)."""
+        ph, pw = h - chan.shape[0], w - chan.shape[1]
+        return np.pad(chan, ((0, ph), (0, pw)), mode="edge")
+
+    mcu_w = 16 if subsampling in (H2V1, H2V2) else 8
+    mcu_h = 16 if subsampling == H2V2 else 8
+    Hp = -(-H // mcu_h) * mcu_h
+    Wp = -(-W // mcu_w) * mcu_w
+    y_p = pad_to(ych, Hp, Wp)
+    if uch is not None:
+        u_p, v_p = pad_to(uch, Hp, Wp), pad_to(vch, Hp, Wp)
+
+        def down(c, y0, x0):
+            tile = c[y0 : y0 + mcu_h, x0 : x0 + mcu_w]
+            if subsampling == H2V2:
+                return (tile[0::2, 0::2] + tile[1::2, 0::2]
+                        + tile[0::2, 1::2] + tile[1::2, 1::2]) * f(0.25)
+            if subsampling == H2V1:
+                return (tile[:, 0::2] + tile[:, 1::2]) * f(0.5)
+            return tile
+
+    dcy = dcu = dcv = 0
+    for y0 in range(0, Hp, mcu_h):
+        for x0 in range(0, Wp, mcu_w):
+            for by in range(0, mcu_h, 8):
+                for bx in range(0, mcu_w, 8):
+                    dcy = _encode_du(
+                        bw, y_p[y0 + by : y0 + by + 8, x0 + bx : x0 + bx + 8],
+                        fdy, dcy, YDC_HT, YAC_HT)
+            if uch is not None:
+                dcu = _encode_du(bw, down(u_p, y0, x0), fdc, dcu,
+                                 UVDC_HT, UVAC_HT)
+                dcv = _encode_du(bw, down(v_p, y0, x0), fdc, dcv,
+                                 UVDC_HT, UVAC_HT)
     write_trailer(bw)
     return out.getvalue()

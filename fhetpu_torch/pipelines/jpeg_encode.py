@@ -25,6 +25,7 @@ from ..bfv.evaluator import Ct, Evaluator
 from ..core import modops
 from ..core.dct_kernel import dct8x8_kernel
 from ..core.server_kernel import server_ycc_dct_fused
+from .jpeg_fast import server_ycc_dct_fast
 
 # AAN rotation constants, exactly as multiplied in the reference network
 _C0541 = 0.541196100
@@ -139,6 +140,7 @@ def server_compute_fn(
     input_ntt: bool = False,
     output_ntt: bool = False,
     fused_lazy: bool = False,
+    use_fast: bool = False,
 ):
     """The server op: uint32 [nb, 3, 64, 2, L, n] -> same shape, on the
     tensor's device.
@@ -156,11 +158,21 @@ def server_compute_fn(
     With quantize on, the YCC transform and the per-slot quantize multiplies
     run on the evaluator's torch ops, and the DCT between them on the
     DCT-only kernel (its plain version for a CPU tensor).
+
+    use_fast selects fhetpu's lazy-reduction, folded-constant network
+    (``pipelines/jpeg_fast.py``, torch int64 ops) in place of both, with
+    quantize on or off: the same output bits.  It cannot be combined with
+    fused_lazy, which names a kernel.
     """
+    if use_fast and fused_lazy:
+        raise ValueError("use_fast and fused_lazy select different networks")
     ev.server_state()  # build the kernels' tables now, not in the first call
 
     def fn(cts: torch.Tensor) -> torch.Tensor:
         d = ev.transform_to_ntt(Ct(cts, input_ntt)).data  # [nb, 3, 64, 2, L, n]
+        if use_fast:
+            out = server_ycc_dct_fast(ev, d, apply_quantize, quant)
+            return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data
         if not apply_quantize:
             out = server_ycc_dct_fused(ev, d, lazy=fused_lazy)
             return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data

@@ -499,3 +499,75 @@ def test_kernels_launch_on_the_last_card_from_device_0(cuda):
     torch.cuda.synchronize(last)
     for g, w in zip(got, want):
         assert g.device == last and torch.equal(g.cpu(), w)
+
+
+def test_native_jpeg_op_on_cuda_runs_the_lazy_kernel(cuda):
+    """On the native n = 8192 chain (m = 2), the lazy JPEG op on a CUDA
+    tensor launches the NTTs and the lazy kernel, never the strict one, and
+    gives the residues of the same op's plain versions on the CPU."""
+    par = BfvParams.create_native(n=8192, t=T)
+    enc = FractionalEncoder(T, 8192)
+    x = _residues(np.random.default_rng(81), par.q_primes, (1, 3, 64, 2), 8192)
+    want = server_compute_fn(Evaluator(par, enc, device="cpu"),
+                             fused_lazy=True)(torch.from_numpy(x))
+    ev = Evaluator(par, enc, device=cuda)
+    assert server_kernel.lazy_bound_multiple(ev) == 2
+    before = _launches() + (server_kernel.server_ycc_dct_fused.lazy_launches,)
+    got = server_compute_fn(ev, fused_lazy=True)(torch.from_numpy(x).to(cuda))
+    torch.cuda.synchronize()
+    after = _launches() + (server_kernel.server_ycc_dct_fused.lazy_launches,)
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2],
+            after[3] - before[3]) == (1, 0, 1, 1)
+    assert np.array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_lazy_kernel_at_native_16384(cuda):
+    """n = 16384 on the native chain (L = 16): the lazy kernel at m = 2 is
+    bit-equal to its plain version and to the strict kernel, and the NTT
+    kernels on the native q to their plain versions."""
+    par = BfvParams.create_native(n=16384, t=T)
+    ev = Evaluator(par, device=cuda)
+    assert server_kernel.lazy_bound_multiple(ev) == 2
+    x = torch.from_numpy(_residues(np.random.default_rng(82), par.q_primes, (1, 3, 64, 2),
+                                   16384)).to(cuda)
+    lazy = server_kernel.server_ycc_dct_fused(ev, x, lazy=True)
+    st = ev.server_state(cuda)
+    assert torch.equal(lazy, server_kernel.server_ycc_dct_lazy_plain(x, st, 2))
+    assert torch.equal(lazy, server_kernel.server_ycc_dct_fused(ev, x))
+    dt = ntt_kernel.device_tables(par.tables_q, cuda)
+    polys = x[0, 0, :4].reshape(-1, par.L, par.n)
+    fx = ntt_kernel.ntt_forward(polys, dt)
+    assert torch.equal(fx, ntt_kernel.ntt_plain(polys, dt))
+    assert torch.equal(ntt_kernel.ntt_inverse(fx, dt), ntt_kernel.intt_plain(fx, dt))
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
+def test_ntt4_on_cuda_equals_ntt_kernels(cuda, n):
+    """The four-step NTT's int8 products on the card (torch._int_mm) give
+    the NTT kernels' bits, forward and inverse, on q."""
+    from fhetpu_torch.core import ntt4step
+
+    tables = BfvParams.create(n=n, t=T).tables_q
+    x = torch.from_numpy(_residues(np.random.default_rng(83), tables.primes, (3,), n)).to(cuda)
+    fx = ntt.ntt(x, tables)
+    assert torch.equal(ntt4step.ntt4(x, tables, True), fx)
+    assert torch.equal(ntt4step.ntt4(fx, tables, False), ntt.intt(fx, tables))
+
+
+def test_fast_quantize_op_on_cuda_equals_default(cuda):
+    """server_compute_fn(use_fast=True) with quantize on a CUDA tensor
+    launches the NTT kernels and no JPEG kernel, and gives the default
+    --quantize op's bits (torch YCC, the DCT-only kernel, torch quantize)."""
+    par = BfvParams.create(n=2048, t=T)
+    ev = Evaluator(par, FractionalEncoder(T, 2048), device=cuda)
+    quant = build_quant_tables(50)[0][ZIGZAG].astype(np.float64)
+    x = torch.from_numpy(_residues(np.random.default_rng(84), par.q_primes, (2, 3, 64, 2),
+                                   2048)).to(cuda)
+    want = server_compute_fn(ev, apply_quantize=True, quant=quant)(x)
+    before = (dct_kernel.dct8x8_kernel.launches,) + _launches()
+    got = server_compute_fn(ev, apply_quantize=True, quant=quant, use_fast=True)(x)
+    torch.cuda.synchronize()
+    after = (dct_kernel.dct8x8_kernel.launches,) + _launches()
+    assert (after[0] - before[0], after[2] - before[2]) == (0, 0)
+    assert after[1] > before[1] and after[3] > before[3]
+    assert torch.equal(got, want)

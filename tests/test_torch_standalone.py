@@ -1,8 +1,9 @@
 """fhetpu_torch's own copies of fhetpu's JAX-free modules against the
 originals: prime chains, fractional encoder, golden oracle, block
-utilities, JPEG codec bytes, the native host NTT, the resize client's
-OpenCV ground truth, the BEHZ tables, the noise estimates and the ring-
-degree chooser.  The port imports none
+utilities, JPEG codec bytes (the client's and the jpge-equivalent
+encoder's), the native host NTT, the resize client's OpenCV ground truth,
+the BEHZ tables, the noise estimates, the ring-degree chooser, the
+plaintext reference DCT and the text image format.  The port imports none
 of the originals (tests/test_torch_cli.py::test_package_imports_without_jax),
 so each copy is held equal to its original here.  Every comparison is
 exact; inputs come from np.random.default_rng."""
@@ -21,19 +22,21 @@ from fhetpu.bfv import golden as f_golden
 from fhetpu.bfv import noise as f_noise
 from fhetpu.bfv import rns as f_rns
 from fhetpu.bfv.params import BfvParams as FBfvParams
+from fhetpu.codec import dct_ref as f_dct_ref
 from fhetpu.codec import jpeg as f_jpeg
 from fhetpu.core import ntt as f_ntt
 from fhetpu.core import primes as f_primes
 from fhetpu.io import images as f_images
+from fhetpu.io import textimage as f_textimage
 from fhetpu.pipelines import cv_resize as f_cv_resize
 
 import fhetpu_torch
 from fhetpu_torch import native
 from fhetpu_torch.bfv import chooser, encoder, golden, noise, rns
 from fhetpu_torch.bfv.params import BfvParams
-from fhetpu_torch.codec import jpeg
+from fhetpu_torch.codec import dct_ref, jpeg
 from fhetpu_torch.core import ntt, primes
-from fhetpu_torch.io import images
+from fhetpu_torch.io import images, textimage
 from fhetpu_torch.pipelines import cv_resize
 from fhetpu_torch.pipelines import jpeg_encode as pipe
 
@@ -99,6 +102,57 @@ def _jpeg(rng):
     assert ours.getvalue() == ref.getvalue()
     img = rng.integers(0, 256, size=(8, 16, 3), dtype=np.uint8)
     assert jpeg.jo_jpeg_encode(img, quality=0) == f_jpeg.jo_jpeg_encode(img, quality=0)
+
+
+def _jpge(rng):
+    """The jpge-equivalent encoder, byte for byte, in its four subsampling
+    modes at two qualities, with and without chroma discrimination, on
+    RGB sizes that need edge replication and on grayscale."""
+    assert (jpeg.Y_ONLY, jpeg.H1V1, jpeg.H2V1, jpeg.H2V2) == \
+        (f_jpeg.Y_ONLY, f_jpeg.H1V1, f_jpeg.H2V1, f_jpeg.H2V2)
+    rgb = rng.integers(0, 256, size=(13, 21, 3), dtype=np.uint8)
+    gray = rng.integers(0, 256, size=(10, 9), dtype=np.uint8)
+    for quality in (25, 90):
+        for discrim in (False, True):
+            tabs = jpeg._ijg_quant_tables(quality, discrim)
+            for got, want in zip(tabs, f_jpeg._ijg_quant_tables(quality, discrim)):
+                assert np.array_equal(got, want)
+            assert np.array_equal(jpeg._fdtbl(tabs[1]), f_jpeg._fdtbl(tabs[1]))
+            for mode in (jpeg.Y_ONLY, jpeg.H1V1, jpeg.H2V1, jpeg.H2V2):
+                kw = dict(quality=quality, subsampling=mode, no_chroma_discrim=discrim)
+                assert jpeg.jpge_encode(rgb, **kw) == f_jpeg.jpge_encode(rgb, **kw), kw
+            kw = dict(quality=quality, subsampling=jpeg.H2V2, no_chroma_discrim=discrim)
+            assert jpeg.jpge_encode(gray, **kw) == f_jpeg.jpge_encode(gray, **kw)
+
+
+def _dct_ref(rng):
+    """The plaintext double AAN DCT, one block and a batch in both shapes."""
+    block = rng.uniform(-128, 128, size=64)
+    assert np.array_equal(dct_ref.dct(block), f_dct_ref.dct(block))
+    for shape in ((5, 64), (5, 8, 8)):
+        blocks = rng.uniform(-128, 128, size=shape)
+        assert np.array_equal(dct_ref.dct_blocks(blocks), f_dct_ref.dct_blocks(blocks))
+
+
+def _textimage(rng):
+    """The text image format: what one package writes, the other reads the
+    same, and the files are byte-equal; image_to_gray (PIL) agrees."""
+    import tempfile
+
+    gray = rng.uniform(0, 255, size=(6, 11))
+    with tempfile.TemporaryDirectory() as d:
+        ours, ref = os.path.join(d, "ours.txt"), os.path.join(d, "ref.txt")
+        textimage.write_text_image(ours, gray)
+        f_textimage.write_text_image(ref, gray)
+        with open(ours, "rb") as a, open(ref, "rb") as b:
+            assert a.read() == b.read()
+        got, want = textimage.read_text_image(ref), f_textimage.read_text_image(ours)
+        assert np.array_equal(got[0], want[0]) and got[1:] == want[1:] == (11, 6)
+        assert np.array_equal(got[0], gray)
+    rgb = rng.integers(0, 256, size=(12, 16, 3), dtype=np.uint8)
+    for size in (None, (8, 6)):
+        assert np.array_equal(textimage.image_to_gray(rgb, size),
+                              f_textimage.image_to_gray(rgb, size))
 
 
 def _native_transform(lib, threads, x, tables, forward):
@@ -198,8 +252,10 @@ def _chooser(rng):
 
 
 @pytest.mark.parametrize("case", [_primes, _encoder, _golden, _images, _jpeg, _native,
-                                  _cv_resize, _behz, _noise, _chooser],
+                                  _cv_resize, _behz, _noise, _chooser, _jpge, _dct_ref,
+                                  _textimage],
                          ids=["primes", "encoder", "golden", "images", "jpeg", "native",
-                              "cv_resize", "behz", "noise", "chooser"])
+                              "cv_resize", "behz", "noise", "chooser", "jpge", "dct_ref",
+                              "textimage"])
 def test_copy_equals_original(case):
     case(np.random.default_rng(31))
