@@ -141,12 +141,24 @@ Phases, each printed on its own line; any failure exits non-zero:
         their plain versions on these inputs;
      c. each NTT kernel's device time per launch at n = 4096, L = 4 and
         B = 16, 64, 256 polynomials x L, with the L2 cache flushed before
-        each launch and warm, in a spawned process (there torch.profiler
-        starts fresh), from torch.profiler (the mean over the launches it
-        saw of 20) and from CUDA events around each launch enqueued behind
-        a sleep kernel, beside its bound (the data's
-        2*4*B*L*n bytes plus the twiddle tables over 3.35 TB/s, or the
-        integer operations, whichever is larger).
+        each launch and warm, in a spawned process, from torch.profiler
+        (the mean of 20 launches, each of which it must see) and from CUDA
+        events around each launch enqueued behind a sleep kernel, beside
+        its bound (the data's 2*4*B*L*n bytes plus the twiddle tables over
+        3.35 TB/s, or the integer operations, whichever is larger).
+ 10. the CLIs reading a pipe, as fhetpu's do, on phase 4's stream files:
+     a. python -m fhetpu_torch.cli.server_jpeg --device cuda -i <FIFO fed by
+        a thread> byte-equal to 4a's output from the file, its
+        --profile-dir trace showing both NTT kernels and the fused kernel;
+     b. python -m fhetpu_torch.cli.server_decode --device cuda -i /dev/stdin
+        with 4i's harmonic stream piped in: decrypts to 4i's pixels, the
+        NTT kernels in its trace and no JPEG kernel;
+     c. client_jpeg --recieve from a FIFO: the file run's RMSError line and
+        JFIF bytes.
+
+Every torch.profiler reading (phases 5, 8c, 8d and 9c, each in a fresh
+process, and 10) fails the run if the profiler saw no device time or missed
+a launch that the wrappers counted in its window.
 
 The last lines are a JSON object of the kernels, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.  Imports neither
@@ -156,9 +168,11 @@ CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -476,7 +490,7 @@ def _read_stream(path, count):
     return cts
 
 
-def phase_main_paths(dev):
+def phase_main_paths(dev, work):
     import torch
     from fhetpu_torch.bfv.encoder import FractionalEncoder
     from fhetpu_torch.bfv.evaluator import Evaluator
@@ -535,6 +549,7 @@ def phase_main_paths(dev):
         cli_out = _read_stream(os.path.join(d, "s2c_strict.bin"), nb * 192).reshape(shape)
         check(np.array_equal(ntt.intt(lazy_out, par.tables_q).cpu().numpy(), cli_out),
               "lazy server op differs from the strict server CLI's stream")
+        shutil.copytree(d, os.path.join(work, "jpeg"), copy_function=os.link)  # for phase 10
     m = lazy_bound_multiple(ev)
     print(f"phase 4c: lazy server op, n={par.n} m={m}, on the image's {nb} blocks: bit-equal "
           f"to the strict op and to the server CLI's stream; launches {launches['lazy']}",
@@ -739,7 +754,7 @@ def _count_ntt_by_base(fn, L):
     return out, bases
 
 
-def phase_decode_paths(dev):
+def phase_decode_paths(dev, work):
     """The decode main paths, each driven with every launch count set to 0
     just before it and read just after:
     4i. harmonics: the seeded 48x48 image through client_decode.send_array
@@ -816,6 +831,7 @@ def phase_decode_paths(dev):
               f"clock); peak device memory {peak / 2**30:.3f} GiB; pixels within {worst:.0f} of "
               f"trunc+clamp of the exact series; channel 0's first 64 positions equal "
               f"expand_harmonics_server on the card and on the CPU; launches {got}", flush=True)
+        shutil.copytree(d, os.path.join(work, "decode"))  # for phase 10; 4j rewrites c2s.bin
 
         # 4j: trusted, a pair stream at n=4096
         keys = os.path.join(d, "keys_pairs")
@@ -989,61 +1005,138 @@ def _device_times(prof) -> tuple:
     return ntt_us / 1e3, all_us / 1e3
 
 
-def _profile(fn) -> str:
-    """One call of fn under torch.profiler: its device time, the number of
-    device kernels it ran and their mean time, against the host clock."""
+def _check_seen(prof, launched: dict, what: str) -> tuple:
+    """Fails the run unless torch.profiler saw device time and, kernel
+    family by family (TRACE_KERNELS), each launch that the wrappers counted
+    in the profiled window; (device kernels in all, their device ms)."""
+    import torch
+
+    seen, kernels, us = dict.fromkeys(TRACE_KERNELS, 0), 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += evt.count
+        us += _self_device_us(evt)
+        for family, pat in TRACE_KERNELS.items():
+            seen[family] += evt.count if re.search(pat, evt.key) else 0
+    check(kernels > 0 and us > 0, f"{what}: torch.profiler saw no device time")
+    check(seen == launched, f"{what}: torch.profiler saw {seen}, the wrappers launched "
+                            f"{launched}")
+    return kernels, us / 1e3
+
+
+@contextlib.contextmanager
+def _profiled():
+    """torch.profiler (CPU and CUDA) around the enclosed work, the card
+    synchronized on both sides.  Used in fresh processes only
+    (_in_fresh_process)."""
     import torch
 
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+def _profile(fn, what: str) -> str:
+    """One call of fn under torch.profiler: its device time, the number of
+    device kernels it ran and their mean time, against the host clock.
+    Fails the run if the profiler missed a launch (_check_seen)."""
+    import torch
+
+    reset_launches()
+    with _profiled() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = sum(evt.count for evt in prof.key_averages()
-                  if evt.device_type == torch.autograd.DeviceType.CUDA)
-    dev_ms = _device_times(prof)[1]
-    if not kernels or dev_ms <= 0:
-        return "the profiler saw no device time: not measured"
+    kernels, dev_ms = _check_seen(prof, read_launches(), what)
     return (f"profiled call: {dev_ms:.3f} ms device time in {kernels} kernels "
             f"({1e3 * dev_ms / kernels:.1f} us each) against {wall:.3f} ms host clock")
 
 
-def phase_resize_timing(dev, gen, card):
-    """CUDA-event ms of one resize tile (4 output rows x 17 columns, the
-    server's default tile, over a source window of random residues) for the
-    bilinear (n=4096) and bicubic (n=8192) encrypted-fract ops, the host
-    time of their fract operands, the NTT launches per tile on each base,
-    the share of device time in the NTT kernels (torch.profiler), interps/s
-    and peak device memory."""
+def _ntt_share(fn, what: str) -> str:
+    """The NTT kernels' share of one call's device time (torch.profiler);
+    fails the run if the profiler missed a launch (_check_seen)."""
+    reset_launches()
+    with _profiled() as prof:
+        fn()
+    _check_seen(prof, read_launches(), what)
+    ntt_ms, dev_ms = _device_times(prof)
+    return (f"NTT kernels {ntt_ms:.3f} ms of {dev_ms:.3f} ms device time "
+            f"({100 * ntt_ms / dev_ms:.1f} %)")
+
+
+def _in_fresh_process(fn, *args):
+    """fn(*args) in a newly spawned process.  torch.profiler there sees
+    every launch; in a process that has profiled and worked before, it
+    misses the first kernels of a window (PERF.md section 7)."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(fn, *args).result()
+
+
+def _resize_tile(dev, gen, mode_name: str, n: int) -> tuple:
+    """Phase 5's resize tile (4 output rows x 17 columns, the server's
+    default tile, over a source window of random residues) with encrypted
+    fracts: (tile(), its parameters, its output rows, the host seconds of
+    its fract operands)."""
     import torch
     from fhetpu_torch.bfv.crypto import Encryptor, KeyGenerator
     from fhetpu_torch.bfv.encoder import FractionalEncoder
     from fhetpu_torch.bfv.evaluator import Evaluator
     from fhetpu_torch.bfv.params import BfvParams
     from fhetpu_torch.cli.server_resize import tile_rows
-    from fhetpu_torch.core import ntt_kernel
     from fhetpu_torch.pipelines import resize as rz
 
+    mode = rz.BICUBIC if mode_name == "bicubic" else rz.BILINEAR
+    par = BfvParams.create(n=n)
+    ev = Evaluator(par, FractionalEncoder(par.t, n), device=dev)
+    enc = Encryptor(par, KeyGenerator(par, seed=SEED).public_key(), seed=SEED)
+    row_plan, col_plan = (rz.axis_plan(IMG_HW, RESIZE_HW, mode) for _ in range(2))
+    y0, y1, lo, hi = tile_rows(row_plan, RESIZE_HW, 4)[1]
+    win = rand_residues((hi - lo, IMG_HW, 3, 2), par.q_primes, n, gen, dev)
+    rp = rz.AxisPlan(idx=row_plan.idx[y0:y1] - lo, fract=row_plan.fract[y0:y1])
+    t0 = time.perf_counter()
+    yops, xops = rz.make_fract_bundles(ev, rp, col_plan, mode, encryptor=enc)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+
+    def tile():
+        return rz.resize_tile(ev, win, rp, col_plan, yops, xops, mode, False)
+
+    return tile, par, y1 - y0, host_s
+
+
+def resize_tile_share(mode_name: str, n: int) -> str:
+    """Phase 5's NTT share of one resize tile's device time; run by
+    _in_fresh_process."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    tile = _resize_tile(dev, gen, mode_name, n)[0]
+    tile()  # the first call builds the tables
+    return _ntt_share(tile, f"phase 5 resize {mode_name} tile")
+
+
+def phase_resize_timing(dev, gen, card):
+    """CUDA-event ms of one resize tile (_resize_tile) for the bilinear
+    (n=4096) and bicubic (n=8192) encrypted-fract ops, the host time of
+    their fract operands, the NTT launches per tile on each base, the share
+    of device time in the NTT kernels (torch.profiler, in a fresh process),
+    interps/s and peak device memory."""
+    import torch
+    from fhetpu_torch.core import ntt_kernel
+
     for mode_name, n in RESIZE_TIMING:
-        mode = rz.BICUBIC if mode_name == "bicubic" else rz.BILINEAR
-        interp_per_px = 20 if mode == rz.BICUBIC else 3  # the server's OpTimer units
-        par = BfvParams.create(n=n)
-        ev = Evaluator(par, FractionalEncoder(par.t, n), device=dev)
-        enc = Encryptor(par, KeyGenerator(par, seed=SEED).public_key(), seed=SEED)
-        row_plan, col_plan = (rz.axis_plan(IMG_HW, RESIZE_HW, mode) for _ in range(2))
-        y0, y1, lo, hi = tile_rows(row_plan, RESIZE_HW, 4)[1]
-        win = rand_residues((hi - lo, IMG_HW, 3, 2), par.q_primes, n, gen, dev)
-        rp = rz.AxisPlan(idx=row_plan.idx[y0:y1] - lo, fract=row_plan.fract[y0:y1])
-        t0 = time.perf_counter()
-        yops, xops = rz.make_fract_bundles(ev, rp, col_plan, mode, encryptor=enc)
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-
-        def tile():
-            return rz.resize_tile(ev, win, rp, col_plan, yops, xops, mode, False)
-
+        interp_per_px = 20 if mode_name == "bicubic" else 3  # the server's OpTimer units
+        tile, par, rows, host_s = _resize_tile(dev, gen, mode_name, n)
         bases = {}
         launch = ntt_kernel._launch
 
@@ -1064,50 +1157,38 @@ def phase_resize_timing(dev, gen, card):
         torch.cuda.reset_peak_memory_stats(dev)
         ms = time_ms(tile, 3)
         peak = torch.cuda.max_memory_allocated(dev)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            tile()
-            torch.cuda.synchronize()
-        ntt_ms, dev_ms = _device_times(prof)
-        interps = (y1 - y0) * RESIZE_HW * interp_per_px
-        share = (f"NTT kernels {ntt_ms:.3f} ms of {dev_ms:.3f} ms device time "
-                 f"({100 * ntt_ms / dev_ms:.1f} %), torch int64 passes and copies the rest"
-                 if dev_ms > 0 else "the profiler saw no device time: share not measured")
-        print(f"phase 5: resize {mode_name} tile, n={n}, {y1 - y0} rows x {RESIZE_HW} columns x 3, "
+        del tile
+        torch.cuda.empty_cache()
+        share = _in_fresh_process(resize_tile_share, mode_name, n)
+        interps = rows * RESIZE_HW * interp_per_px
+        print(f"phase 5: resize {mode_name} tile, n={n}, {rows} rows x {RESIZE_HW} columns x 3, "
               f"encrypted fracts, unrelinearized: {ms:.3f} ms per tile (CUDA events, 3 runs), "
               f"{interps / (ms / 1e3):.1f} interps/s; fract operands on the host {host_s:.3f} s; "
               f"NTT launches per tile {per_tile['ntt_forward']} forward, "
-              f"{per_tile['ntt_inverse']} inverse, by base {sorted(bases.items())}; {share}; "
-              f"peak device memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
-        del win, yops, xops, ev
-        torch.cuda.empty_cache()
+              f"{per_tile['ntt_inverse']} inverse, by base {sorted(bases.items())}; {share}, "
+              f"torch int64 passes and copies the rest; peak device memory "
+              f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
 
 
-def phase_decode_timing(dev, card):
-    """The harmonic expansion of one channel at 48x48 and the chooser's
-    n=2048 (order 64, degree 12: 25 harmonics x 2304 positions): the first
-    call, which builds the weight tables (host encoding, upload, lift and
-    one forward NTT; host clock), the tables' NTT alone and later calls from
-    the cache (CUDA events), NTT launches per channel, the NTT share of
-    device time (torch.profiler), peak device memory and the bound from
-    bytes; then CUDA-event ms per pure-FHE pair at n=16384 (16 positions,
-    degree 2, relinearized)."""
+def _decode_channel(dev) -> tuple:
+    """Phase 5's harmonic expansion of one channel at 48x48 and the
+    chooser's n=2048 (order 64, degree 12: 25 harmonics x 2304 positions),
+    output back in coefficient form: (evaluator, harmonics, positions,
+    channel())."""
     import torch
     from fhetpu_torch.bfv import crypto
     from fhetpu_torch.bfv.encoder import FractionalEncoder
-    from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
+    from fhetpu_torch.bfv.evaluator import Ct, Evaluator
     from fhetpu_torch.bfv.params import BfvParams
-    from fhetpu_torch.core import ntt
     from fhetpu_torch.pipelines import rle_decode as rd
 
     order, degree = DECODE["order"], DECODE["degree"]
     par = BfvParams.create(n=2048)
     encoder = FractionalEncoder(par.t, par.n)
     ev = Evaluator(par, encoder, device=dev)
-    H, P = 2 * degree + 1, IMG_HW * IMG_HW
-    positions = np.arange(P)
+    positions = np.arange(IMG_HW * IMG_HW)
     kg = crypto.KeyGenerator(par, seed=SEED)
-    harm_vals = np.random.default_rng(SEED).uniform(-3000.0, 3000.0, size=H)
+    harm_vals = np.random.default_rng(SEED).uniform(-3000.0, 3000.0, size=2 * degree + 1)
     harm = Ct(torch.from_numpy(crypto.Encryptor(par, kg.public_key(), seed=SEED).encrypt_batch(
         encoder.encode_batch(harm_vals))).to(dev))
 
@@ -1115,6 +1196,72 @@ def phase_decode_timing(dev, card):
         return ev.transform_from_ntt(rd.expand_harmonics_batched(ev, harm, positions, order,
                                                                  degree))
 
+    return ev, harm, positions, channel
+
+
+def _pure_fhe_pair(dev) -> tuple:
+    """Phase 5's pure-FHE step for one pair at n=16384 (t=2^24, 16
+    positions, degree 2, relinearized): (parameters, pair())."""
+    import torch
+    from fhetpu_torch.bfv import crypto
+    from fhetpu_torch.bfv.encoder import FractionalEncoder
+    from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.pipelines import rle_decode as rd
+
+    n, t = 16384, 1 << 24
+    par = BfvParams.create(n=n, t=t)
+    encoder = FractionalEncoder(t, n, 100, 10)
+    ev = Evaluator(par, encoder, device=dev)
+    kg = crypto.KeyGenerator(par, seed=SEED)
+    enc = crypto.Encryptor(par, kg.public_key(), seed=SEED + 1)
+    rk = DeviceRelinKeys(kg.relin_keys(max_power=2, digit_bits=0))
+    amp, idx, c = (Ct(torch.from_numpy(enc.encrypt(encoder.encode(v))).to(dev))
+                   for v in (45.0, 8.0, 8.0))
+    positions = np.arange(16)
+
+    def pair():
+        return rd.approximated_step_fhe(ev, amp, idx, c, 64, 2, 0.5, positions, rk)
+
+    return par, pair
+
+
+def decode_channel_share() -> str:
+    """Phase 5's NTT share of one decode channel's device time; run by
+    _in_fresh_process."""
+    import torch
+
+    channel = _decode_channel(torch.device("cuda:0"))[-1]
+    channel()  # the first call builds the weight tables
+    return _ntt_share(channel, "phase 5 decode harmonic expansion")
+
+
+def pure_fhe_pair_share() -> str:
+    """Phase 5's NTT share of one pure-FHE pair's device time; run by
+    _in_fresh_process."""
+    import torch
+
+    pair = _pure_fhe_pair(torch.device("cuda:0"))[1]
+    pair()  # the first call builds the tables
+    return _ntt_share(pair, "phase 5 decode pure-FHE pair")
+
+
+def phase_decode_timing(dev, card):
+    """The harmonic expansion of one channel (_decode_channel): the first
+    call, which builds the weight tables (host encoding, upload, lift and
+    one forward NTT; host clock), the tables' NTT alone and later calls from
+    the cache (CUDA events), NTT launches per channel, the NTT share of
+    device time (torch.profiler, in a fresh process), peak device memory
+    and the bound from bytes; then CUDA-event ms per pure-FHE pair
+    (_pure_fhe_pair) and its NTT share."""
+    import torch
+    from fhetpu_torch.core import ntt
+    from fhetpu_torch.pipelines import rle_decode as rd
+
+    order, degree = DECODE["order"], DECODE["degree"]
+    H, P = 2 * degree + 1, IMG_HW * IMG_HW
+    ev, harm, positions, channel = _decode_channel(dev)
+    par = ev.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1131,19 +1278,15 @@ def phase_decode_timing(dev, card):
     ms = time_ms(lambda: rd.expand_harmonics_batched(ev, harm, positions, order, degree), 5)
     ms_io = time_ms(channel, 5)
     peak = torch.cuda.max_memory_allocated(dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        channel()
-        torch.cuda.synchronize()
-    ntt_ms, dev_ms = _device_times(prof)
-    share = (f"NTT kernels {ntt_ms:.3f} ms of {dev_ms:.3f} ms device time "
-             f"({100 * ntt_ms / dev_ms:.1f} %)" if dev_ms > 0
-             else "the profiler saw no device time: share not measured")
     # bytes: the tables once, the harmonics once, the output once
     nbytes = tabs.numel() * 4 + harm.data.numel() * 4 + P * 2 * par.L * par.n * 4
+    tab_gb = tabs.numel() * 4 / 1e9
+    del tabs, flat, ev, harm, channel
+    torch.cuda.empty_cache()
+    share = _in_fresh_process(decode_channel_share)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"phase 5: decode harmonic expansion, one channel, {IMG_HW}x{IMG_HW}, n={par.n}, "
-          f"{H} harmonics x {P} positions: first call (builds the {tabs.numel() * 4 / 1e9:.3f} GB "
+          f"{H} harmonics x {P} positions: first call (builds the {tab_gb:.3f} GB "
           f"weight tables: host encoding, upload, lift, one forward NTT over {H * P} rows) "
           f"{first_s:.3f} s host clock, of which the tables' NTT {tab_ms:.3f} ms (CUDA events); "
           f"from the cache {ms:.3f} ms per channel (CUDA events, 5 runs; the harmonics' forward "
@@ -1153,43 +1296,21 @@ def phase_decode_timing(dev, card):
           f"forward, {per_channel['ntt_inverse']} inverse; {share}; bound {bound_ms:.3f} ms by "
           f"bytes ({nbytes / 1e9:.3f} GB; {100 * bound_ms / ms_io:.1f} % of it reached); peak "
           f"device memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
-    del tabs, flat, ev, harm
-    torch.cuda.empty_cache()
 
-    n, t = 16384, 1 << 24
-    par = BfvParams.create(n=n, t=t)
-    encoder = FractionalEncoder(t, n, 100, 10)
-    ev = Evaluator(par, encoder, device=dev)
-    kg = crypto.KeyGenerator(par, seed=SEED)
-    enc = crypto.Encryptor(par, kg.public_key(), seed=SEED + 1)
-    rk = DeviceRelinKeys(kg.relin_keys(max_power=2, digit_bits=0))
-    amp, idx, c = (Ct(torch.from_numpy(enc.encrypt(encoder.encode(v))).to(dev))
-                   for v in (45.0, 8.0, 8.0))
-    positions = np.arange(16)
-
-    def pair():
-        return rd.approximated_step_fhe(ev, amp, idx, c, 64, 2, 0.5, positions, rk)
-
+    par, pair = _pure_fhe_pair(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     _, bases = _count_ntt_by_base(pair, par.L)
     torch.cuda.synchronize()
     ms = time_ms(pair, 3)
     peak = torch.cuda.max_memory_allocated(dev)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        pair()
-        torch.cuda.synchronize()
-    ntt_ms, dev_ms = _device_times(prof)
-    share = (f"NTT kernels {ntt_ms:.3f} ms of {dev_ms:.3f} ms device time "
-             f"({100 * ntt_ms / dev_ms:.1f} %)" if dev_ms > 0
-             else "the profiler saw no device time: share not measured")
-    print(f"phase 5: decode pure-FHE step, one pair, n={n}, t=2^24, degree 2, 16 positions, "
+    del pair
+    torch.cuda.empty_cache()
+    share = _in_fresh_process(pure_fhe_pair_share)
+    print(f"phase 5: decode pure-FHE step, one pair, n={par.n}, t=2^24, degree 2, 16 positions, "
           f"relinearized (dbc 0): {ms:.3f} ms per pair (CUDA events, 3 runs); NTT launches per "
           f"pair by base {sorted(bases.items())}; {share}; peak device memory "
           f"{peak / 2**30:.3f} GiB [{card}]", flush=True)
-    del ev, rk, amp, idx, c
-    torch.cuda.empty_cache()
 
 
 def kernel_work(name, x, L, n, m) -> tuple:
@@ -1296,17 +1417,17 @@ def phase_timing(dev, gen, errs, card):
 NOISE_ARTIFACT = os.path.join("bench_results", "noise_validation.json")
 
 
-def _bench_module(args: list, cwd: str, timeout: int) -> subprocess.CompletedProcess:
-    """``python -m fhetpu_torch.bench.<args>`` as its user runs it, with the
-    checkout importable; its output is returned, a non-zero exit raises."""
+def _run_module(args: list, cwd: str, timeout: int, stdin: bytes = None):
+    """``python -m <args>`` as its user runs it, with the checkout importable
+    and ``stdin`` (bytes) fed to it through a pipe; a non-zero exit raises
+    with the end of its output."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
-    r = subprocess.run([sys.executable, "-m"] + args, cwd=cwd, env=env, capture_output=True,
-                       text=True, timeout=timeout)
-    check(r.returncode == 0, f"{' '.join(args)} exited {r.returncode}:\n{r.stdout[-3000:]}"
-                             f"\n{r.stderr[-3000:]}")
-    return r
+    r = subprocess.run([sys.executable, "-m"] + args, cwd=cwd, env=env, input=stdin,
+                       capture_output=True, timeout=timeout)
+    out, err = (b.decode(errors="replace")[-3000:] for b in (r.stdout, r.stderr))
+    check(r.returncode == 0, f"{' '.join(args)} exited {r.returncode}:\n{out}\n{err}")
 
 
 def phase_bench():
@@ -1314,7 +1435,6 @@ def phase_bench():
     entry point as its user calls it: the headline at the four ring
     degrees, the noise sweep against fhetpu's committed artifact, and the
     --quick configurations of both sweeps."""
-    import contextlib
     import io
 
     from fhetpu_torch.bench import analyze, headline
@@ -1401,8 +1521,8 @@ def phase_bench():
         # subprocesses (their launches are counted in those processes)
         logs, work = os.path.join(d, "benchlogs"), os.path.join(d, "benchwork")
         t0 = time.perf_counter()
-        _bench_module(["fhetpu_torch.bench.benchmark", "--quick", "--out", logs,
-                       "--workdir", work], d, 900)
+        _run_module(["fhetpu_torch.bench.benchmark", "--quick", "--out", logs,
+                     "--workdir", work], d, 900)
         with open(os.path.join(logs, "grid_results.json")) as f:
             grid = {r["pipeline"]: r for r in json.load(f)}
         op = {"jpg": "DCT", "bilinear": "Linear", "bicubic": "Cubic"}
@@ -1419,8 +1539,8 @@ def phase_bench():
               flush=True)
         dout = os.path.join(d, "decode_out")
         t0 = time.perf_counter()
-        _bench_module(["fhetpu_torch.bench.decode_sweep", "--quick", "--out", dout,
-                       "--workdir", os.path.join(d, "decodework")], d, 900)
+        _run_module(["fhetpu_torch.bench.decode_sweep", "--quick", "--out", dout,
+                     "--workdir", os.path.join(d, "decodework")], d, 900)
         stats = analyze.parse_log(os.path.join(dout, "sweep.log"))
         check({"Encryption", "Step", "Decryption", "RMSError"} <= set(stats),
               f"decode_sweep --quick: rows {sorted(stats)}")
@@ -1722,6 +1842,43 @@ BENCH_CORE_ONLY = "ntt_sweep,ntt_fwd,ntt_inv,behz,relinearize,linear,harmonics_o
 BENCH_CORE_TIMEOUT = 300
 
 
+def ntt4_profile() -> str:
+    """Phase 8c's profiled four-step NTT, forward, at n=4096 and B=64; run
+    by _in_fresh_process."""
+    import torch
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.core import ntt4step
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    tables = BfvParams.create(n=TIMING_N).tables_q
+    x = rand_residues((64,), tables.primes, TIMING_N, gen, dev)
+    ntt4step.ntt4(x, tables, True)  # the first call builds the tables
+    return _profile(lambda: ntt4step.ntt4(x, tables, True), "phase 8c four-step NTT")
+
+
+def quantize_op_profile(use_fast: bool) -> str:
+    """Phase 8d's profiled --quantize op, the fast network or the default,
+    at n=4096 and nb=64; run by _in_fresh_process."""
+    import torch
+    from fhetpu_torch.bfv.evaluator import Evaluator
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
+    from fhetpu_torch.pipelines.jpeg_encode import server_compute_fn
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    par = BfvParams.create(n=TIMING_N)
+    quant = build_quant_tables(0)[0][ZIGZAG].astype(np.float64)
+    x = rand_residues((TIMING_NB, 3, 64, 2), par.q_primes, par.n, gen, dev)
+    op = server_compute_fn(Evaluator(par, device=dev), apply_quantize=True, quant=quant,
+                           use_fast=use_fast)
+    op(x)  # the first call builds the tables
+    return _profile(lambda: op(x), f"phase 8d {'fast' if use_fast else 'default'} --quantize op")
+
+
 def phase_native_fast(dev, gen, errs, card):
     """Phase 8: the modules of the port's last slice on the card, every
     launch count set to 0 just before each path and read just after, every
@@ -1837,12 +1994,11 @@ def phase_native_fast(dev, gen, errs, card):
               f"ntt4 inverse at n={n}")
         ft = ntt4step.get_fourstep(tables.primes, n)
         shapes.append(f"n={n} A*B={ft.A}*{ft.B} L={len(tables.primes)}")
-    tables = BfvParams.create(n=TIMING_N).tables_q
-    x = rand_residues((64,), tables.primes, TIMING_N, gen, dev)
+    del x, fx
+    torch.cuda.empty_cache()
     print(f"phase 8c: four-step NTT, forward and inverse, bit-equal to the NTT kernels on q, "
           f"{NTT4_BATCH} polynomials at {'; '.join(shapes)}; forward at n={TIMING_N}, B=64: "
-          f"{_profile(lambda: ntt4step.ntt4(x, tables, True))} [{card}]", flush=True)
-    torch.cuda.empty_cache()
+          f"{_in_fresh_process(ntt4_profile)} [{card}]", flush=True)
 
     # (d) the fast network's --quantize op against the default one
     par = BfvParams.create(n=TIMING_N)
@@ -1865,12 +2021,13 @@ def phase_native_fast(dev, gen, errs, card):
     d_ms = time_ms(lambda: default(x), 3)
     torch.cuda.empty_cache()
     f_ms = time_ms(lambda: fast(x), 3)
+    del x, ev, default, fast
+    torch.cuda.empty_cache()
     print(f"phase 8d: --quantize op, n={par.n} nb={TIMING_NB}: use_fast=True bit-equal to the "
           f"default (torch YCC, DCT-only kernel, torch quantize); launches {fast_path}; default "
-          f"{d_ms:.3f} ms, fast {f_ms:.3f} ms (CUDA events, 3 runs); fast {_profile(lambda: fast(x))}; "
-          f"default {_profile(lambda: default(x))} [{card}]", flush=True)
-    del x, ev
-    torch.cuda.empty_cache()
+          f"{d_ms:.3f} ms, fast {f_ms:.3f} ms (CUDA events, 3 runs); fast "
+          f"{_in_fresh_process(quantize_op_profile, True)}; default "
+          f"{_in_fresh_process(quantize_op_profile, False)} [{card}]", flush=True)
 
     # (e) bench.core as its user runs it, under its own timeout
     labels = ("ntt_fwd_kernel", "ntt_inv_kernel", "behz_multiply", "relinearize",
@@ -1878,8 +2035,8 @@ def phase_native_fast(dev, gen, errs, card):
     with tempfile.TemporaryDirectory() as d:
         out_path = os.path.join(d, "bench_core_torch.json")
         t0 = time.perf_counter()
-        _bench_module(["fhetpu_torch.bench.core", "--only", BENCH_CORE_ONLY, "--out", out_path],
-                      d, BENCH_CORE_TIMEOUT)
+        _run_module(["fhetpu_torch.bench.core", "--only", BENCH_CORE_ONLY, "--out", out_path],
+                    d, BENCH_CORE_TIMEOUT)
         with open(out_path) as f:
             res = json.load(f)
     secs = time.perf_counter() - t0
@@ -2023,16 +2180,8 @@ def phase_last_helpers(dev, gen, errs, card):
         del fa, fb, pw, prod, b, a_dev
     torch.cuda.empty_cache()
 
-    # (c) device time of the NTT kernels at small batches, in a fresh process:
-    # in this one, after phases 1-8, torch.profiler saw 9 of 20 launches and
-    # then none
-    import concurrent.futures
-    import multiprocessing
-
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        lines = pool.submit(ntt_small_batch_times, dev, card).result()
-    for line in lines:
+    # (c) device time of the NTT kernels at small batches, in a fresh process
+    for line in _in_fresh_process(ntt_small_batch_times, dev, card):
         print(line, flush=True)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
 
@@ -2054,7 +2203,6 @@ def ntt_small_batch_times(dev, card: str) -> list:
     dt = ntt_kernel.device_tables(tables, dev)
     L, n = len(tables.primes), tables.n
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     lines = []
     for B in SWEEP_BATCHES:
         x = rand_residues((B,), tables.primes, n, gen, dev)
@@ -2065,11 +2213,10 @@ def ntt_small_batch_times(dev, card: str) -> list:
             torch.cuda.synchronize()
             prof_us, seen, event_us = {}, {}, {}
             for l2, pre in (("flushed", lambda: flush.fill_(1)), ("warm", lambda: None)):
-                with torch.profiler.profile(activities=acts) as prof:
+                with _profiled() as prof:
                     for _ in range(SWEEP_REPS):
                         pre()
                         fn(arg, dt)
-                    torch.cuda.synchronize()
                 seen[l2], prof_us[l2] = _kernel_device_us(prof, "ntt_kernel")
                 event_us[l2] = _events_behind_sleep(lambda: fn(arg, dt), pre, SWEEP_REPS)
             nbytes, ops = kernel_work(name, x, L, n, 1)
@@ -2077,13 +2224,11 @@ def ntt_small_batch_times(dev, card: str) -> list:
             data_us = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e6
             b_us, b_by = (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops,
                                                                            "operations")
-            if all(seen.values()):
-                profiled = (f"torch.profiler {prof_us['flushed']:.3f} / {prof_us['warm']:.3f} "
-                            f"({seen['flushed']}, {seen['warm']} of {SWEEP_REPS} launches "
-                            f"seen; {100 * b_us / prof_us['flushed']:.1f} % / "
-                            f"{100 * b_us / prof_us['warm']:.1f} % of the bound)")
-            else:
-                profiled = "torch.profiler saw no launch: not measured"
+            check(all(v == SWEEP_REPS for v in seen.values()),
+                  f"phase 9c {name} B={B}: torch.profiler saw {seen} of {SWEEP_REPS} launches")
+            profiled = (f"torch.profiler {prof_us['flushed']:.3f} / {prof_us['warm']:.3f} "
+                        f"(all {SWEEP_REPS} launches seen; {100 * b_us / prof_us['flushed']:.1f} "
+                        f"% / {100 * b_us / prof_us['warm']:.1f} % of the bound)")
             lines.append(
                 f"phase 9c: {name} n={n} L={L} B={B} ({x.numel() * 4 / 1e6:.3f} MB in), "
                 f"device us per launch, L2 flushed / warm: {profiled}; CUDA events behind a "
@@ -2092,6 +2237,144 @@ def ntt_small_batch_times(dev, card: str) -> list:
                 f"{1e3 * t_bytes:.3f} us with the twiddle tables, {data_us:.3f} us for "
                 f"2*4*B*L*n bytes alone; integer {1e3 * t_ops:.3f} us) [{card}]")
     return lines
+
+
+PIPE_TIMEOUT = 300  # each phase-10 server process
+# kernel families in a torch.profiler trace, by the names nvcc gives the kernels
+TRACE_KERNELS = {"ntt_forward": r"ntt_kernel<(true|\(bool\)1)|ntt_kernelILb1",
+                 "ntt_inverse": r"ntt_kernel<(false|\(bool\)0)|ntt_kernelILb0",
+                 "server_ycc_dct": r"server_ycc_dct_strict_kernel",
+                 "server_ycc_dct_lazy": r"server_ycc_dct_lazy_kernel",
+                 "dct8x8": r"dct8x8_kernel"}
+
+
+@contextlib.contextmanager
+def feed_fifo(path: str, data: bytes):
+    """A FIFO at path that a thread feeds with data once a reader opens it."""
+    import threading
+
+    os.mkfifo(path)
+
+    def feed():
+        with contextlib.suppress(BrokenPipeError), open(path, "wb") as f:
+            f.write(data)
+
+    t = threading.Thread(target=feed, daemon=True)
+    t.start()
+    try:
+        yield path
+    finally:
+        if t.is_alive():  # no reader came, or it stopped early: let the writer go
+            os.close(os.open(path, os.O_RDONLY | os.O_NONBLOCK))
+        t.join(60)
+        check(not t.is_alive(), f"the writer of {path} never finished")
+
+
+def _trace_kernels(profile_dir: str) -> dict:
+    """Launches per kernel family in the one torch.profiler trace a server
+    wrote with --profile-dir, and the number of device kernels in all."""
+    traces = [f for f in os.listdir(profile_dir) if f.startswith("trace-")]
+    check(len(traces) == 1, f"{profile_dir} holds {traces}, not one trace")
+    with open(os.path.join(profile_dir, traces[0])) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    out = {k: sum(bool(re.search(pat, name)) for name in names)
+           for k, pat in TRACE_KERNELS.items()}
+    out["all"] = len(names)
+    check(out["all"] > 0, f"torch.profiler saw no device kernel in {traces[0]}")
+    return out
+
+
+def phase_pipes(work):
+    """Phase 10: the port's CLIs reading their input from a pipe, as fhetpu's
+    do, on the stream files phase 4 wrote:
+    a. python -m fhetpu_torch.cli.server_jpeg --device cuda -i <FIFO fed by a
+       thread> on 4a's stream: byte-equal to 4a's output from the file; its
+       --profile-dir trace shows both NTT kernels and the fused kernel;
+    b. python -m fhetpu_torch.cli.server_decode --device cuda -i /dev/stdin
+       with 4i's harmonic stream piped in: decrypts to 4i's pixels; its
+       trace shows both NTT kernels and no JPEG kernel;
+    c. client_jpeg --recieve (run_recieve, the CLI's path) on 4a's output
+       from a FIFO and from the file: the same RMSError line and JFIF."""
+    import io
+
+    from fhetpu_torch.cli import client_decode, client_jpeg
+
+    t_phase = time.perf_counter()
+    img = np.random.default_rng(SEED).integers(0, 256, size=(IMG_HW, IMG_HW, 3),
+                                               dtype=np.uint8)
+    jpeg, dec = os.path.join(work, "jpeg"), os.path.join(work, "decode")
+    jpeg_kernels = ("server_ycc_dct", "server_ycc_dct_lazy", "dct8x8")
+    with tempfile.TemporaryDirectory() as d:
+        # (a) server_jpeg from a FIFO
+        c2s = _file_bytes(os.path.join(jpeg, "c2s.bin"))
+        s2c = _file_bytes(os.path.join(jpeg, "s2c_strict.bin"))
+        out, prof = os.path.join(d, "s2c_fifo.bin"), os.path.join(d, "trace_jpeg")
+        t0 = time.perf_counter()
+        with feed_fifo(os.path.join(d, "c2s.fifo"), c2s) as fifo:
+            _run_module(["fhetpu_torch.cli.server_jpeg", "-i", fifo, "-c", out,
+                         "--chunk-blocks", "64", "--device", "cuda", "--keydir",
+                         os.path.join(jpeg, "keys"), "--profile-dir", prof], d, PIPE_TIMEOUT)
+        secs = time.perf_counter() - t0
+        ran = _trace_kernels(prof)
+        check(_file_bytes(out) == s2c, "server_jpeg from a FIFO: its stream differs from 4a's")
+        check(all(ran[k] > 0 for k in ("ntt_forward", "server_ycc_dct", "ntt_inverse")),
+              f"server_jpeg from a FIFO: kernels in its trace {ran}")
+        print(f"phase 10a: python -m fhetpu_torch.cli.server_jpeg --device cuda -i <FIFO> on "
+              f"4a's stream ({len(c2s) / 1e6:.1f} MB fed by a thread): byte-equal to 4a's "
+              f"output from the file; {secs:.3f} s (host clock: process start, reading, op, "
+              f"writing, profiler); kernels in its --profile-dir trace {ran}", flush=True)
+
+        # (b) server_decode from /dev/stdin through a pipe
+        keys = ["--keydir", os.path.join(dec, "keys")]
+        c2s = _file_bytes(os.path.join(dec, "c2s.bin"))
+        out, prof = os.path.join(d, "s2c_stdin.bin"), os.path.join(d, "trace_decode")
+        t0 = time.perf_counter()
+        _run_module(["fhetpu_torch.cli.server_decode", "-i", "/dev/stdin", "-c", out,
+                     "--device", "cuda", "--profile-dir", prof] + keys, d, PIPE_TIMEOUT, stdin=c2s)
+        secs = time.perf_counter() - t0
+        ran = _trace_kernels(prof)
+        pix = {}
+        for src, path in (("file", os.path.join(dec, "s2c.bin")), ("stdin", out)):
+            rargs = client_decode.parser().parse_args(["--recieve", "-i", path] + keys)
+            pix[src] = client_decode.to_pixels(client_decode.recieve_arrays(rargs))
+        check(pix["stdin"].shape == (IMG_HW, IMG_HW, 3)
+              and np.array_equal(pix["stdin"], pix["file"]),
+              "server_decode from /dev/stdin: pixels differ from 4i's")
+        check(ran["ntt_forward"] > 0 and ran["ntt_inverse"] > 0
+              and all(ran[k] == 0 for k in jpeg_kernels),
+              f"server_decode from /dev/stdin: kernels in its trace {ran}")
+        same = _file_bytes(out) == _file_bytes(os.path.join(dec, "s2c.bin"))
+        print(f"phase 10b: python -m fhetpu_torch.cli.server_decode --device cuda -i /dev/stdin "
+              f"on 4i's harmonic stream ({len(c2s) / 1e6:.1f} MB through a pipe): decrypts to "
+              f"4i's {IMG_HW}x{IMG_HW} pixels (stream {'byte-equal' if same else 'not byte-equal'} "
+              f"to 4i's); {secs:.3f} s (host clock, as 10a); kernels in its trace {ran}",
+              flush=True)
+
+        # (c) client_jpeg --recieve from a FIFO
+        keys = ["--keydir", os.path.join(jpeg, "keys")]
+        rms, jfif, secs = {}, {}, {}
+        for src in ("file", "fifo"):
+            jfif[src] = os.path.join(d, f"out_{src}.jpg")
+            buf = io.StringIO()
+            with contextlib.ExitStack() as stack:
+                path = (os.path.join(jpeg, "s2c_strict.bin") if src == "file" else
+                        stack.enter_context(feed_fifo(os.path.join(d, "s2c.fifo"), s2c)))
+                rargs = client_jpeg.parser().parse_args(
+                    ["--recieve", "-i", path, "-o", jfif[src]] + keys)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    client_jpeg.run_recieve(rargs, img)
+                secs[src] = time.perf_counter() - t0
+            rms[src] = [ln for ln in buf.getvalue().splitlines() if ln.startswith("RMSError,")]
+        check(len(rms["file"]) == 1 and rms["fifo"] == rms["file"],
+              f"client_jpeg --recieve from a FIFO: {rms['fifo']}, from the file {rms['file']}")
+        check(_file_bytes(jfif["fifo"]) == _file_bytes(jfif["file"]),
+              "client_jpeg --recieve from a FIFO: its JPEG differs from the file run's")
+        print(f"phase 10c: client_jpeg --recieve on 4a's output from a FIFO: {rms['fifo'][0]} "
+              f"and a JFIF byte-equal to the file run's; {secs['fifo']:.3f} s from the FIFO, "
+              f"{secs['file']:.3f} s from the file (host clock)", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)
 
 
 def main() -> int:
@@ -2124,16 +2407,18 @@ def main() -> int:
     errs = {name: 0 for name in KERNELS}
     phase_ntt(dev, gen, errs)
     phase_server(dev, gen, errs)
-    launches = phase_main_paths(dev)
-    phase_resize_paths(dev)
-    phase_decode_paths(dev)
-    _, times = phase_timing(dev, gen, errs, card)
-    phase_resize_timing(dev, gen, card)
-    phase_decode_timing(dev, card)
-    phase_bench()
-    phase_sharded(dev, card)
-    phase_native_fast(dev, gen, errs, card)
-    phase_last_helpers(dev, gen, errs, card)
+    with tempfile.TemporaryDirectory() as work:  # phase 4's streams, read again in phase 10
+        launches = phase_main_paths(dev, work)
+        phase_resize_paths(dev)
+        phase_decode_paths(dev, work)
+        _, times = phase_timing(dev, gen, errs, card)
+        phase_resize_timing(dev, gen, card)
+        phase_decode_timing(dev, card)
+        phase_bench()
+        phase_sharded(dev, card)
+        phase_native_fast(dev, gen, errs, card)
+        phase_last_helpers(dev, gen, errs, card)
+        phase_pipes(work)
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -51,7 +51,7 @@ def _window(fn, x, k: int, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def measure(fn, x, label: str, device, target_seconds: float = 0.0, verbose: bool = True):
+def measure(fn, x, label: str, device, verbose: bool = True, target_seconds: float = 0.0):
     """Per-iteration seconds of ``fn`` chained on ``x`` (its output must be a
     valid input).  Returns ``(sec_per_iter, k, dt)`` like fhetpu's: the
     chain length and the window it was taken from.  Raises RuntimeError

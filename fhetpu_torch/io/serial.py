@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import stat
 import struct
 from typing import Optional
 
@@ -19,6 +20,7 @@ import numpy as np
 
 MAGIC = b"FHET"
 VERSION = 1
+READ_ALL_CHUNK_BYTES = 256 << 20  # CtReader.read_all's largest read on a pipe
 
 
 def write_params_txt(path: str, width: int, height: int, channels: int, pmod: int):
@@ -98,7 +100,11 @@ class CtWriter:
 
 
 class CtReader:
-    """Streaming reader: iterate chunks of k ciphertexts at a time."""
+    """Streaming reader: iterate chunks of k ciphertexts at a time.
+
+    Reads a regular file or a pipe (a FIFO, ``/dev/stdin``) alike, as
+    fhetpu's reader does: a read returns the whole ciphertexts it got and
+    drops a trailing partial one."""
 
     def __init__(self, path: str):
         self.f = open(path, "rb")
@@ -111,33 +117,76 @@ class CtReader:
         self.size = header["size"]
         self.L = header["L"]
         self.n = header["n"]
+        # -1 until CtWriter.close patches it: a bound on read_all's chunk only
         self.count = header["count"]
         self.meta = header.get("meta", {})
         self._ct_bytes = self.size * self.L * self.n * 4
+        self._regular = stat.S_ISREG(os.fstat(self.f.fileno()).st_mode)
+        self._done = 0  # whole ciphertexts returned so far
+        # read_all's chunk on a pipe, in ciphertexts
+        self.chunk = max(READ_ALL_CHUNK_BYTES // self._ct_bytes, 1)
 
     def read(self, k: int) -> Optional[np.ndarray]:
-        """Read up to k ciphertexts -> [m, size, L, n] or None at EOF.
-
-        The array owns a writable buffer, so torch can adopt it without a
-        copy."""
-        m = min(k, self._left())
-        if m <= 0:
+        """Read up to k ciphertexts -> [m, size, L, n], or None when no byte
+        is left.  A trailing partial ciphertext is read and dropped, so m
+        may be 0, as with fhetpu's reader.  On a regular file the buffer is
+        sized by the bytes left, on a pipe by k.  The array owns a writable
+        buffer, so torch can adopt it without a copy."""
+        want = k * self._ct_bytes
+        if self._regular:
+            left = os.fstat(self.f.fileno()).st_size - self.f.tell()
+            if left <= 0:
+                return None
+            if want >= left:  # this read reaches the end: take the partial tail too
+                want = left
+        arr = self._buffer(min(k, want // self._ct_bytes))
+        got = self._fill(memoryview(arr.reshape(-1).view(np.uint8)))
+        if got == arr.nbytes and want > got:  # the bytes past the whole ones
+            got += len(self.f.read(want - got))
+        if got == 0:
             return None
-        arr = np.empty((m, self.size, self.L, self.n), dtype=np.uint32)
-        got = self.f.readinto(memoryview(arr).cast("B"))
-        if got != arr.nbytes:
-            raise ValueError(f"short read: {got} of {arr.nbytes} bytes")
-        return arr
+        m = got // self._ct_bytes
+        self._done += m
+        return arr[:m]
 
     def read_all(self) -> np.ndarray:
-        """The rest of the stream -> [m, size, L, n] (m = 0 at EOF), sized
-        by the bytes left in the file, as ``read`` is."""
-        out = self.read(self._left())
-        return out if out is not None else np.zeros((0, self.size, self.L, self.n), np.uint32)
+        """The rest of the stream -> [m, size, L, n] (m = 0 at EOF).  On a
+        regular file one read sized by the bytes left; on a pipe reads of
+        at most ``self.chunk`` ciphertexts (fewer where the header's count
+        bounds the rest), joined at EOF."""
+        if self._regular:
+            out = self.read(1 << 62)
+            return self._empty() if out is None else out
+        parts = []
+        while True:
+            rest = self.count - self._done
+            k = min(self.chunk, rest) if rest > 0 else self.chunk
+            out = self.read(k)
+            if out is None:
+                break
+            parts.append(out)
+            if out.shape[0] < k:  # the pipe reached EOF inside this read
+                break
+        if not parts:
+            return self._empty()
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
-    def _left(self) -> int:
-        """Whole ciphertexts between the read position and the file's end."""
-        return (os.fstat(self.f.fileno()).st_size - self.f.tell()) // self._ct_bytes
+    def _buffer(self, m: int) -> np.ndarray:
+        return np.empty((m, self.size, self.L, self.n), dtype=np.uint32)
+
+    def _empty(self) -> np.ndarray:
+        return np.zeros((0, self.size, self.L, self.n), np.uint32)
+
+    def _fill(self, view: memoryview) -> int:
+        """readinto until view is full or the stream ends (a pipe returns
+        short reads); the number of bytes read."""
+        got = 0
+        while got < len(view):
+            r = self.f.readinto(view[got:])
+            if not r:
+                break
+            got += r
+        return got
 
     def close(self):
         self.f.close()

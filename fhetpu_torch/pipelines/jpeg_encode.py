@@ -139,8 +139,8 @@ def server_compute_fn(
     quant: Optional[np.ndarray] = None,
     input_ntt: bool = False,
     output_ntt: bool = False,
+    use_fast: Optional[bool] = None,
     fused_lazy: bool = False,
-    use_fast: bool = False,
 ):
     """The server op: uint32 [nb, 3, 64, 2, L, n] -> same shape, on the
     tensor's device.
@@ -159,7 +159,8 @@ def server_compute_fn(
     run on the evaluator's torch ops, and the DCT between them on the
     DCT-only kernel (its plain version for a CPU tensor).
 
-    use_fast selects fhetpu's lazy-reduction, folded-constant network
+    use_fast (None is False, as in fhetpu) selects fhetpu's lazy-reduction,
+    folded-constant network
     (``pipelines/jpeg_fast.py``, torch int64 ops) in place of both, with
     quantize on or off: the same output bits.  It cannot be combined with
     fused_lazy, which names a kernel.

@@ -617,3 +617,22 @@ def test_ntt_kernel_product_equals_naive_convolution(cuda):
         modops.to_i64(fa), modops.to_i64(fb), p)), dt).cpu().numpy()
     for li, q in enumerate(tables.primes):
         assert np.array_equal(prod[li], ntt.negacyclic_convolve_naive(a[li], b[li], q))
+
+
+def test_server_jpeg_on_cuda_reads_a_fifo(cuda, tmp_path):
+    """server_jpeg --device cuda reading the client's stream from a FIFO
+    (fed by a thread) writes the stream it writes from the file, byte for
+    byte."""
+    from chip_smoke import feed_fifo
+    from fhetpu_torch.cli import client_jpeg, server_jpeg
+
+    img = np.random.default_rng(87).integers(0, 256, size=(16, 16, 3), dtype=np.uint8)
+    keys = ["--keydir", str(tmp_path / "keys")]
+    c2s = str(tmp_path / "c2s.bin")
+    client_jpeg.send_array(client_jpeg.parser().parse_args(
+        ["--send", "-c", c2s, "--cmod", "2048", "--pmod", str(T)] + keys), img)
+    with open(c2s, "rb") as f, feed_fifo(str(tmp_path / "c2s.fifo"), f.read()) as fifo:
+        server_jpeg.main(["-i", fifo, "-c", str(tmp_path / "fifo.bin"), "--device", "cuda"] + keys)
+    server_jpeg.main(["-i", c2s, "-c", str(tmp_path / "file.bin"), "--device", "cuda"] + keys)
+    with open(tmp_path / "fifo.bin", "rb") as a, open(tmp_path / "file.bin", "rb") as b:
+        assert a.read() == b.read()
