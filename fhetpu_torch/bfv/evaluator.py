@@ -24,6 +24,7 @@ import torch
 
 from ..convert import server_arrays, server_state_from_numpy
 from ..core import modops, ntt
+from ..trace import span
 from . import rns
 from .crypto import centered_lift_plain
 from .encoder import FractionalEncoder, Plaintext
@@ -182,12 +183,14 @@ class Evaluator:
     def transform_to_ntt(self, ct: Ct) -> Ct:
         if ct.ntt_form:
             return ct
-        return Ct(ntt.ntt(modops.to_u32(ct.data), self.tables_q), True)
+        with span("bfv.evaluator.transform"):
+            return Ct(ntt.ntt(modops.to_u32(ct.data), self.tables_q), True)
 
     def transform_from_ntt(self, ct: Ct) -> Ct:
         if not ct.ntt_form:
             return ct
-        return Ct(ntt.intt(modops.to_u32(ct.data), self.tables_q), False)
+        with span("bfv.evaluator.transform"):
+            return Ct(ntt.intt(modops.to_u32(ct.data), self.tables_q), False)
 
     # ----- linear ops (domain-agnostic elementwise) ----------------------
 
@@ -209,15 +212,18 @@ class Evaluator:
         return pad(da, sa), pad(db, sb)
 
     def add(self, a: Ct, b: Ct) -> Ct:
-        da, db = self._align(a, b)
-        return Ct(modops.addmod(da, db, self.p), a.ntt_form)
+        with span("bfv.evaluator.linear"):
+            da, db = self._align(a, b)
+            return Ct(modops.addmod(da, db, self.p), a.ntt_form)
 
     def sub(self, a: Ct, b: Ct) -> Ct:
-        da, db = self._align(a, b)
-        return Ct(modops.submod(da, db, self.p), a.ntt_form)
+        with span("bfv.evaluator.linear"):
+            da, db = self._align(a, b)
+            return Ct(modops.submod(da, db, self.p), a.ntt_form)
 
     def negate(self, a: Ct) -> Ct:
-        return Ct(modops.negmod(modops.to_i64(a.data), self.p), a.ntt_form)
+        with span("bfv.evaluator.linear"):
+            return Ct(modops.negmod(modops.to_i64(a.data), self.p), a.ntt_form)
 
     def _plain_c0(self, a: Ct, op: PlainOperand, fn) -> Ct:
         dev = op.on(self.device)
@@ -227,22 +233,25 @@ class Evaluator:
         return Ct(d, a.ntt_form)
 
     def add_plain(self, a: Ct, op: PlainOperand) -> Ct:
-        return self._plain_c0(a, op, modops.addmod)
+        with span("bfv.evaluator.linear"):
+            return self._plain_c0(a, op, modops.addmod)
 
     def sub_plain(self, a: Ct, op: PlainOperand) -> Ct:
-        return self._plain_c0(a, op, modops.submod)
+        with span("bfv.evaluator.linear"):
+            return self._plain_c0(a, op, modops.submod)
 
     def multiply_plain(self, a: Ct, op: PlainOperand) -> Ct:
         """Pointwise product with the cached NTT of the constant.  NTT-form
         cts multiply directly; coefficient-form cts bounce through the NTT
         (SEAL's Evaluator::multiply_plain does the same internally)."""
-        dev = op.on(self.device)
-        if a.ntt_form:
-            return Ct(modops.mulmod_shoup(modops.to_i64(a.data), dev.mul_ntt,
-                                          dev.mul_ntt_shoup, self.p), True)
-        d = modops.to_i64(ntt.ntt(modops.to_u32(a.data), self.tables_q))
-        d = modops.mulmod_shoup(d, dev.mul_ntt, dev.mul_ntt_shoup, self.p)
-        return Ct(ntt.intt(modops.to_u32(d), self.tables_q), False)
+        with span("bfv.evaluator.multiply_plain"):
+            dev = op.on(self.device)
+            if a.ntt_form:
+                return Ct(modops.mulmod_shoup(modops.to_i64(a.data), dev.mul_ntt,
+                                              dev.mul_ntt_shoup, self.p), True)
+            d = modops.to_i64(ntt.ntt(modops.to_u32(a.data), self.tables_q))
+            d = modops.mulmod_shoup(d, dev.mul_ntt, dev.mul_ntt_shoup, self.p)
+            return Ct(ntt.intt(modops.to_u32(d), self.tables_q), False)
 
     # ----- ciphertext-by-ciphertext multiplication (BEHZ) -----------------
 
@@ -255,9 +264,10 @@ class Evaluator:
     def multiply(self, a: Ct, b: Ct) -> Ct:
         """FV multiply; sizes compose (k1, k2) -> k1+k2-1; coefficient-form
         int64 result (SEAL 2.3 Evaluator::multiply, unrelinearized)."""
-        da = self.transform_from_ntt(a).data
-        db = da if b is a else self.transform_from_ntt(b).data
-        return Ct(rns.multiply(da, db, self.rns_tool), False)
+        with span("bfv.evaluator.multiply"):
+            da = self.transform_from_ntt(a).data
+            db = da if b is a else self.transform_from_ntt(b).data
+            return Ct(rns.multiply(da, db, self.rns_tool), False)
 
     def square(self, a: Ct) -> Ct:
         return self.multiply(a, a)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import modops, ntt
+from ..trace import span
 from .params import BfvParams, _prod
 
 
@@ -193,20 +194,21 @@ class RnsTool:
     # -- step 4: exact Bsk -> q (Shenoy-Kumaresan) -------------------------
 
     def convert_bsk_to_q(self, x_bsk: torch.Tensor) -> torch.Tensor:
-        bc = self.bc
-        nb = bc.K - 1  # number of B primes
-        m_sk = bc.m_sk
-        z = modops.mulmod(x_bsk[..., :nb, :], self.bhat_inv_mod_b, self.bp[:nb])
-        # alpha = (sum_j z_j * (B/b_j) - x_msk) * B^-1 mod m_sk, centred
-        acc = modops.mulmod(z, self.b_over_bj_mod_msk, m_sk).sum(dim=-2)
-        alpha = (acc - x_bsk[..., nb, :]) % m_sk * bc.b_inv_mod_msk % m_sk
-        alpha = torch.where(alpha >= m_sk // 2, alpha - m_sk, alpha)
-        # x_i = sum_j z_j*(B/b_j) - alpha_c*B  mod p_i
-        xq = None
-        for j in range(nb):
-            term = modops.mulmod(z[..., j:j + 1, :], self.b_over_bj_mod_q[j], self.qp)
-            xq = term if xq is None else xq + term
-        return (xq - alpha[..., None, :] * self.b_mod_q) % self.qp
+        with span("bfv.rns.convert"):
+            bc = self.bc
+            nb = bc.K - 1  # number of B primes
+            m_sk = bc.m_sk
+            z = modops.mulmod(x_bsk[..., :nb, :], self.bhat_inv_mod_b, self.bp[:nb])
+            # alpha = (sum_j z_j * (B/b_j) - x_msk) * B^-1 mod m_sk, centred
+            acc = modops.mulmod(z, self.b_over_bj_mod_msk, m_sk).sum(dim=-2)
+            alpha = (acc - x_bsk[..., nb, :]) % m_sk * bc.b_inv_mod_msk % m_sk
+            alpha = torch.where(alpha >= m_sk // 2, alpha - m_sk, alpha)
+            # x_i = sum_j z_j*(B/b_j) - alpha_c*B  mod p_i
+            xq = None
+            for j in range(nb):
+                term = modops.mulmod(z[..., j:j + 1, :], self.b_over_bj_mod_q[j], self.qp)
+                xq = term if xq is None else xq + term
+            return (xq - alpha[..., None, :] * self.b_mod_q) % self.qp
 
 
 def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tensor:
@@ -220,27 +222,30 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
         x = modops.to_i64(ct)
         return _ntt(x, tool.tables_q), _ntt(tool.extend_q_to_bsk(x), tool.tables_bsk)
 
-    a_q, a_b = prep(ct1)
-    b_q, b_b = (a_q, a_b) if ct2 is ct1 else prep(ct2)
+    with span("bfv.rns.extend"):
+        a_q, a_b = prep(ct1)
+        b_q, b_b = (a_q, a_b) if ct2 is ct1 else prep(ct2)
     # 2. tensor product (sizes k1+k2-1)
-    out_q, out_b = [], []
-    for r in range(k1 + k2 - 1):
-        acc_q = acc_b = None
-        for i in range(max(0, r - k2 + 1), min(k1, r + 1)):
-            j = r - i
-            tq = modops.mulmod(a_q[..., i, :, :], b_q[..., j, :, :], tool.qp)
-            tb = modops.mulmod(a_b[..., i, :, :], b_b[..., j, :, :], tool.bp)
-            acc_q = tq if acc_q is None else acc_q + tq
-            acc_b = tb if acc_b is None else acc_b + tb
-        out_q.append(acc_q % tool.qp)
-        out_b.append(acc_b % tool.bp)
-    del a_q, a_b, b_q, b_b
-    prod_q = _intt(torch.stack(out_q, dim=-3), tool.tables_q)
-    prod_b = _intt(torch.stack(out_b, dim=-3), tool.tables_bsk)
-    del out_q, out_b
+    with span("bfv.rns.tensor"):
+        out_q, out_b = [], []
+        for r in range(k1 + k2 - 1):
+            acc_q = acc_b = None
+            for i in range(max(0, r - k2 + 1), min(k1, r + 1)):
+                j = r - i
+                tq = modops.mulmod(a_q[..., i, :, :], b_q[..., j, :, :], tool.qp)
+                tb = modops.mulmod(a_b[..., i, :, :], b_b[..., j, :, :], tool.bp)
+                acc_q = tq if acc_q is None else acc_q + tq
+                acc_b = tb if acc_b is None else acc_b + tb
+            out_q.append(acc_q % tool.qp)
+            out_b.append(acc_b % tool.bp)
+        del a_q, a_b, b_q, b_b
+        prod_q = _intt(torch.stack(out_q, dim=-3), tool.tables_q)
+        prod_b = _intt(torch.stack(out_b, dim=-3), tool.tables_bsk)
+        del out_q, out_b
     # 3. multiply by t, fast-floor by q (in Bsk)
-    tx_q = modops.mulmod(prod_q, tool.t_mod_q, tool.qp)
-    tx_b = modops.mulmod(prod_b, tool.t_mod_bsk, tool.bp)
-    scaled_bsk = tool.scale_floor_to_bsk(tx_q, tx_b)
+    with span("bfv.rns.scale_floor"):
+        tx_q = modops.mulmod(prod_q, tool.t_mod_q, tool.qp)
+        tx_b = modops.mulmod(prod_b, tool.t_mod_bsk, tool.bp)
+        scaled_bsk = tool.scale_floor_to_bsk(tx_q, tx_b)
     # 4. back to q
     return tool.convert_bsk_to_q(scaled_bsk)

@@ -61,7 +61,8 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "are JAX backends and are refused (use --device)")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the server op to this "
-                        "directory (Chrome trace JSON)")
+                        "directory (Chrome trace JSON), with the program's spans "
+                        "(fhetpu_torch/trace.py; PERF.md lists them)")
     p.add_argument("--chunk-blocks", type=int, default=64,
                    help="blocks per device dispatch (streaming window)")
     p.add_argument("--no-noise-check", action="store_true",
@@ -96,7 +97,9 @@ def device_or_exit(name: str) -> torch.device:
 def maybe_profile(args):
     """Context manager: a ``torch.profiler`` trace of the enclosed server op,
     written on exit as ``trace-<pid>.json`` into ``--profile-dir``; a no-op
-    without the flag."""
+    without the flag.  While it records, the program's spans
+    (``fhetpu_torch/trace.py``, listed in PERF.md's span table) appear in the
+    trace around the kernels they launched."""
     if not args.profile_dir:
         yield
         return

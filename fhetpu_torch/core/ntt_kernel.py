@@ -3,7 +3,8 @@ per-device twiddle tables.
 
 Counterpart of ``fhetpu/core/pallas_ntt.py``.  ``ntt_forward`` and
 ``ntt_inverse`` take uint32 tensors ``[..., L, n]``: on a CUDA tensor they
-launch the kernel and count the launch; on a CPU tensor they run
+launch the kernel and count the launch (``launches``) and the polynomials
+it transformed, batch times L (``polys``); on a CPU tensor they run
 ``ntt_plain`` / ``intt_plain``, torch int64 mirrors of
 ``fhetpu/core/ntt.py:_ntt_impl`` and ``_intt_impl``.  There is no fallback
 from a CUDA tensor to the plain version.
@@ -261,7 +262,9 @@ def _launch(x: torch.Tensor, dt: DeviceNttTables, forward: bool) -> torch.Tensor
         err = fn(x.data_ptr(), out.data_ptr(), batch, L, n, tw.data_ptr(), tw.shape[1],
                  dt.p.data_ptr(), int(forward), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fhetpu_ntt")
-    (ntt_forward if forward else ntt_inverse).launches += 1
+    counted = ntt_forward if forward else ntt_inverse
+    counted.launches += 1
+    counted.polys += batch * L
     return out
 
 
@@ -283,5 +286,5 @@ def ntt_inverse(x: torch.Tensor, dt: DeviceNttTables) -> torch.Tensor:
     return intt_plain(x, dt)
 
 
-ntt_forward.launches = 0
-ntt_inverse.launches = 0
+ntt_forward.launches = ntt_forward.polys = 0  # kernel launches, (polynomial, limb) pairs
+ntt_inverse.launches = ntt_inverse.polys = 0

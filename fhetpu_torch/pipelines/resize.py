@@ -32,6 +32,7 @@ import torch
 
 from ..bfv import golden as g
 from ..bfv.evaluator import Ct, DeviceOperand, PlainOperand
+from ..trace import span
 
 BILINEAR = 0
 BICUBIC = 1
@@ -229,44 +230,46 @@ def resize_tile(ev, src, row_plan: AxisPlan, col_plan: AxisPlan, yops, xops,
     """src: [H, W, 3, 2, L, n] coefficient-domain ciphertext grid on the
     evaluator's device.  Returns uint32 [R', C', 3, size, L, n]
     (coefficient domain)."""
-    taps = 2 if mode == BILINEAR else 4
-    R, C = row_plan.idx.shape[0], col_plan.idx.shape[0]
+    with span("pipelines.resize.resize_tile"):
+        taps = 2 if mode == BILINEAR else 4
+        R, C = row_plan.idx.shape[0], col_plan.idx.shape[0]
 
-    def index(plan):
-        return torch.from_numpy(np.ascontiguousarray(plan.idx.T).reshape(-1)).to(src.device)
+        def index(plan):
+            return torch.from_numpy(np.ascontiguousarray(plan.idx.T).reshape(-1)).to(src.device)
 
-    # gather [taps_y, taps_x, R', C', 3, 2, L, n]
-    rows = src.index_select(0, index(row_plan)).reshape((taps, R) + src.shape[1:])
-    grid = rows.index_select(2, index(col_plan))
-    grid = grid.reshape((taps, R, taps, C) + src.shape[2:])
-    grid = grid.permute(0, 2, 1, 3, 4, 5, 6, 7).contiguous()
+        # gather [taps_y, taps_x, R', C', 3, 2, L, n]
+        with span("pipelines.resize.gather"):
+            rows = src.index_select(0, index(row_plan)).reshape((taps, R) + src.shape[1:])
+            grid = rows.index_select(2, index(col_plan))
+            grid = grid.reshape((taps, R, taps, C) + src.shape[2:])
+            grid = grid.permute(0, 2, 1, 3, 4, 5, 6, 7).contiguous()
 
-    if plain:
-        grid = ev.transform_to_ntt(Ct(grid, False)).data
+        if plain:
+            grid = ev.transform_to_ntt(Ct(grid, False)).data
 
-    def cell(r, c):
-        return Ct(grid[r, c], plain)
+        def cell(r, c):
+            return Ct(grid[r, c], plain)
 
-    interp_cols = []
-    for r in range(taps):
+        interp_cols = []
+        for r in range(taps):
+            if mode == BILINEAR:
+                interp_cols.append(
+                    linear_interp(ev, cell(r, 0), cell(r, 1), xops, plain, relin)
+                )
+            else:
+                interp_cols.append(
+                    cubic_interp(ev, cell(r, 0), cell(r, 1), cell(r, 2), cell(r, 3),
+                                 xops, plain, relin)
+                )
         if mode == BILINEAR:
-            interp_cols.append(
-                linear_interp(ev, cell(r, 0), cell(r, 1), xops, plain, relin)
-            )
+            out = linear_interp(ev, interp_cols[0], interp_cols[1], yops, plain,
+                                relin)
         else:
-            interp_cols.append(
-                cubic_interp(ev, cell(r, 0), cell(r, 1), cell(r, 2), cell(r, 3),
-                             xops, plain, relin)
-            )
-    if mode == BILINEAR:
-        out = linear_interp(ev, interp_cols[0], interp_cols[1], yops, plain,
-                            relin)
-    else:
-        out = cubic_interp(ev, interp_cols[0], interp_cols[1], interp_cols[2],
-                           interp_cols[3], yops, plain, relin)
-    if plain:
-        out = ev.transform_from_ntt(out)
-    return out.data.to(torch.uint32)
+            out = cubic_interp(ev, interp_cols[0], interp_cols[1], interp_cols[2],
+                               interp_cols[3], yops, plain, relin)
+        if plain:
+            out = ev.transform_from_ntt(out)
+        return out.data.to(torch.uint32)
 
 
 # ---------------------------------------------------------------------------

@@ -93,6 +93,23 @@ def test_ntt_kernels_equal_host_ntt(cuda, n, base, batch):
     assert np.array_equal(ix.cpu().numpy(), x)
 
 
+def test_ntt_kernels_count_the_polynomials_they_transform(cuda):
+    """Each launch adds batch * L to ``polys`` (on q, L = 4; on Bsk, its
+    own limbs); an empty batch launches nothing and counts nothing."""
+    par = BfvParams.create(n=4096, t=T)
+    rng = np.random.default_rng(5)
+    before = (ntt_kernel.ntt_forward.polys, ntt_kernel.ntt_inverse.polys)
+    want = [0, 0]
+    for tables, prefix in ((par.tables_q, (3,)), (par.tables_bsk, (2, 5)),
+                           (par.tables_q, (867, 2)), (par.tables_q, (0,))):
+        x = torch.from_numpy(_residues(rng, tables.primes, prefix, par.n)).to(cuda)
+        ntt.intt(ntt.ntt(x, tables), tables)
+        want = [w + int(np.prod(prefix)) * len(tables.primes) for w in want]
+    torch.cuda.synchronize()
+    assert (ntt_kernel.ntt_forward.polys - before[0],
+            ntt_kernel.ntt_inverse.polys - before[1]) == tuple(want)
+
+
 def test_ntt_kernels_take_over_65535_polynomials(cuda):
     """32769 x 2 limbs = 65538 polynomials at n=2048, more than a grid
     dimension's 65535 and many waves of the persistent grid with a ragged
