@@ -20,6 +20,15 @@ Phases, each printed on its own line; any failure exits non-zero:
      fused kernel against its plain version and the strict kernel at
      n = 2048/4096 (m = 2) and 8192 (m = 1), and its ValueError at 16384;
      the DCT-only kernel against its plain version;
+  3b. the BEHZ floor-convert kernel (steps 3-4 of rns.multiply on the card)
+     against the torch steps it replaces (t x_q, t x_bsk, scale_floor_to_bsk,
+     convert_bsk_to_q), bit-equal, at the bilinear resize's shapes (n = 4096,
+     L = 4, M = 2601 and 3468 components) and at L = 2, 8, 15 and 16 (the
+     native n = 16384 chain), on random residues with one component at
+     p - 1; one launch and M * n positions counted a call; CUDA-event times
+     of both at each shape and per bilinear image (its six launches) beside
+     the kernel's bound (72 B a position at L = 4, or its fewest int32
+     operations);
   4. the main paths on a seeded 48x48 RGB image encrypted by the client
      (coefficient form, n chosen by the client: 4096), each driven with
      every launch count set to 0 just before it and read just after:
@@ -44,8 +53,9 @@ Phases, each printed on its own line; any failure exits non-zero:
         f. bicubic with encrypted fracts (unrelinearized, size 8),
         g. bicubic --plain-fracts on the same stream,
         h. bicubic --relin;
-        on each the NTT kernels launch and the JPEG kernels do not, the
-        decoded values are within 1e-5 of resize_float, and the RMS against
+        on each the NTT kernels launch and the JPEG kernels do not, the BEHZ
+        floor-convert kernel launches with encrypted fracts and not with
+        plain ones, the decoded values are within 1e-5 of resize_float, and the RMS against
         the cv ground truth and the peak device memory are printed; every
         path of a stream decrypts to the --plain-fracts path's polynomials
         exactly, and every output row to the golden network's;
@@ -160,7 +170,9 @@ Every torch.profiler reading (phases 5, 8c, 8d and 9c, each in a fresh
 process, and 10) fails the run if the profiler saw no device time or missed
 a launch that the wrappers counted in its window.
 
-The last lines are a JSON object of the kernels, the card's name and power
+The last lines are a JSON object of the kernels (the BEHZ kernel's row: its
+launches on path 4d, its times and bound per bilinear image, phase 3b), the
+card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.  Imports neither
 JAX, nor PIL, nor anything of the fhetpu package.  Exits non-zero without a
 CUDA device.
@@ -197,6 +209,9 @@ KERNELS = {
     "server_ycc_dct_lazy": ("fhetpu_torch/csrc/server_ycc_dct.cu",
                             "fhetpu/core/pallas_server.py:191"),
     "dct8x8": ("fhetpu_torch/csrc/dct.cu", "fhetpu/core/pallas_dct.py:161"),
+    # BEHZ steps 3-4, which fhetpu computes as XLA ops, not a TPU kernel
+    "behz_floor_convert": ("fhetpu_torch/csrc/behz_floor_convert.cu",
+                           "fhetpu/bfv/rns.py:197"),
 }
 
 
@@ -226,7 +241,8 @@ def resource_usage(lib_path: str) -> list:
         found = re.search(r"Function (\S+):", line)
         if found:
             short = re.search(r"(server_ycc_dct_strict_kernel|server_ycc_dct_lazy_kernelILi\d"
-                              r"|dct8x8_kernel|ntt_kernelILb\dELi\d+)", found.group(1))
+                              r"|dct8x8_kernel|ntt_kernelILb\dELi\d+"
+                              r"|behz_floor_convert_kernelILi\d+ELi\d)", found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
             fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
@@ -281,13 +297,14 @@ def server_occupancy() -> str:
 def counters() -> dict:
     """Each kernel's (wrapper, attribute) where the wrapper counts its
     launches; the fused wrapper counts its lazy kernel apart."""
-    from fhetpu_torch.core import dct_kernel, ntt_kernel, server_kernel
+    from fhetpu_torch.core import behz_kernel, dct_kernel, ntt_kernel, server_kernel
 
     return {"server_ycc_dct": (server_kernel.server_ycc_dct_fused, "launches"),
             "ntt_forward": (ntt_kernel.ntt_forward, "launches"),
             "ntt_inverse": (ntt_kernel.ntt_inverse, "launches"),
             "server_ycc_dct_lazy": (server_kernel.server_ycc_dct_fused, "lazy_launches"),
-            "dct8x8": (dct_kernel.dct8x8_kernel, "launches")}
+            "dct8x8": (dct_kernel.dct8x8_kernel, "launches"),
+            "behz_floor_convert": (behz_kernel.behz_floor_convert, "launches")}
 
 
 def reset_launches():
@@ -399,6 +416,96 @@ def phase_server(dev, gen, errs):
               f"to plain; {lazy_note}; DCT-only bit-equal to plain", flush=True)
         del ev, st, x, strict, dct
         torch.cuda.empty_cache()
+
+
+# The BEHZ floor-convert kernel's shapes, (n, native chain, components M,
+# launches per bilinear 48x48 -> 17x17 image): the resize's two products at
+# n = 4096 (867 ciphertexts x 3 and x 4 output components), then each other
+# L the kernel is built for (2, 8, 15 and, on the native chain, 16)
+BEHZ_SHAPES = ((4096, False, 2601, 4), (4096, False, 3468, 2), (2048, False, 4096, 0),
+               (8192, False, 1024, 0), (16384, False, 128, 0), (16384, True, 128, 0))
+
+
+def behz_work(L: int, positions: int) -> tuple:
+    """(bytes, [FMA, ALU, either] int32 operations) of the floor-convert
+    kernel over ``positions`` (component, coefficient) pairs: 4(L + K)
+    bytes read and 8L written a position (72 B at L = 4), and the
+    operations of csrc/behz_floor_convert.cu's graph."""
+    K, nb = L + 2, L + 1
+    term = LAZY_MUL + ADD  # a lazy product added to a lazy sum
+    sub = LAZY_ADD + 2 * RED  # a + 2p - b, made canonical
+    per = (L * MUL + K * (L * term + LAZY_MUL + sub) + nb * term + sub
+           + L * (LAZY_MUL + nb * term + RED))
+    return positions * (4 * (L + K) + 8 * L), positions * per
+
+
+def phase_behz(dev, gen, errs, card) -> tuple:
+    """Phase 3b: the BEHZ floor-convert kernel against the torch steps it
+    replaces on the card (t x_q, t x_bsk, scale_floor_to_bsk,
+    convert_bsk_to_q) at BEHZ_SHAPES, on random residues with the last
+    component at p - 1 in every base: bit-equal, one launch and M * n
+    positions a call; CUDA-event times of both beside the kernel's bound.
+    Returns (kernel ms, torch steps ms, bound ms, what bounds it) per
+    bilinear image."""
+    import torch
+    from fhetpu_torch.bfv import rns
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.core import behz_kernel, modops
+
+    fc = behz_kernel.behz_floor_convert
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    image_ms, image_bytes, image_ops = np.zeros(2), 0, 0
+    for n, native, m, per_image in BEHZ_SHAPES:
+        par = (BfvParams.create_native if native else BfvParams.create)(n=n)
+        tool = rns.RnsTool(par, dev)
+        L = par.L
+        xq = torch.cat([rand_residues((m - 1,), par.q_primes, n, gen, dev),
+                        worst_residues((1,), par.q_primes, n, dev)])
+        xb = torch.cat([rand_residues((m - 1,), par.bsk_primes, n, gen, dev),
+                        worst_residues((1,), par.bsk_primes, n, dev)])
+
+        def kernel():
+            return fc(xq, xb, tool.floor_convert_table)
+
+        def steps():
+            tx_q = modops.mulmod(modops.to_i64(xq), tool.t_mod_q, tool.qp)
+            tx_b = modops.mulmod(modops.to_i64(xb), tool.t_mod_bsk, tool.bp)
+            return tool.convert_bsk_to_q(tool.scale_floor_to_bsk(tx_q, tx_b))
+
+        before = (fc.launches, fc.positions)
+        got = kernel()
+        torch.cuda.synchronize()
+        counted = (fc.launches - before[0], fc.positions - before[1])
+        check(counted == (1, m * n), f"BEHZ kernel n={n} L={L} M={m}: counted {counted}")
+        want = steps()
+        e = max_abs_err(got, want)
+        errs["behz_floor_convert"] = max(errs["behz_floor_convert"], e)
+        check(got.dtype == torch.int64 and got.shape == want.shape and e == 0,
+              f"BEHZ kernel vs torch steps at n={n} L={L} M={m}: max abs err {e}")
+        del got, want
+        torch.cuda.empty_cache()
+        k_ms, s_ms = time_ms(kernel, 20), time_ms(steps, 3)
+        nbytes, ops = behz_work(L, m * n)
+        t_bytes, t_ops = bound_times(nbytes, ops, sms, clock_hz)
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"phase 3b: BEHZ floor-convert n={n} L={L}{' native' if native else ''} M={m}, "
+              f"random + 1 at p-1: kernel bit-equal to the torch steps, 1 launch, {m * n} "
+              f"positions; kernel {k_ms:.4f} ms, torch steps {s_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"by {b_by} (HBM {t_bytes:.4f} ms, integer {t_ops:.4f} ms; {nbytes / 1e9:.3f} GB, "
+              f"{ops.sum() / 1e9:.2f} G int32 ops); {100 * b_ms / k_ms:.1f} % of it reached "
+              f"[{card}]", flush=True)
+        image_ms += per_image * np.array([k_ms, s_ms])
+        image_bytes, image_ops = image_bytes + per_image * nbytes, image_ops + per_image * ops
+        del xq, xb, tool
+        torch.cuda.empty_cache()
+    t_bytes, t_ops = bound_times(image_bytes, image_ops, sms, clock_hz)
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"phase 3b: BEHZ floor-convert per bilinear 48x48 -> 17x17 image (6 launches): kernel "
+          f"{image_ms[0]:.4f} ms, torch steps {image_ms[1]:.3f} ms; bound {b_ms:.4f} ms by "
+          f"{b_by} ({image_bytes / 1e9:.3f} GB, integer {t_ops:.4f} ms); "
+          f"{100 * b_ms / image_ms[0]:.1f} % of it reached [{card}]", flush=True)
+    return image_ms[0], image_ms[1], b_ms, b_by
 
 
 def _float_dct(block8):
@@ -630,7 +737,9 @@ def phase_resize_paths(dev):
     """The resize main paths on the seeded 48x48 image, 48x48 -> 17x17:
     the client sends at the ring degree its chooser picks, then
     server_resize --device cuda runs each path with every launch count set
-    to 0 just before it and read just after; the client decrypts."""
+    to 0 just before it and read just after; the client decrypts.  Returns
+    the BEHZ floor-convert kernel's launches on the bilinear encrypted-fract
+    path (4d)."""
     import torch
     from fhetpu_torch.bfv.encoder import FractionalEncoder
     from fhetpu_torch.cli import client_resize, server_resize
@@ -641,7 +750,7 @@ def phase_resize_paths(dev):
     img = np.random.default_rng(SEED).integers(0, 256, size=(IMG_HW, IMG_HW, 3),
                                                dtype=np.uint8)
     size = ["--width", str(RESIZE_HW), "--height", str(RESIZE_HW)]
-    step = 0
+    step, behz_launches = 0, None
     for mode_name, mode, want_n in (("bilinear", rz.BILINEAR, 4096), ("bicubic", rz.BICUBIC, 8192)):
         flags = ["--bicubic"] if mode == rz.BICUBIC else []
         paths = [("default", []), ("plain-fracts", ["--plain-fracts"])]
@@ -672,6 +781,11 @@ def phase_resize_paths(dev):
                 check(all(got[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy",
                                                  "dct8x8")),
                       f"{mode_name} {path}: a JPEG kernel launched: {got}")
+                # ct x ct products, one floor-convert launch each, only with encrypted fracts
+                check((got["behz_floor_convert"] > 0) == (path != "plain-fracts"),
+                      f"{mode_name} {path}: BEHZ floor-convert launches {got}")
+                if behz_launches is None:
+                    behz_launches = got["behz_floor_convert"]
                 rargs = client_resize.parser().parse_args(["--recieve", "-i", s2c] + common)
                 t0 = time.perf_counter()
                 vals, plains[path] = client_resize.recieve_arrays(rargs, keep_plain=True)
@@ -701,6 +815,7 @@ def phase_resize_paths(dev):
             print(f"phase 4: resize {mode_name}: every path ({', '.join(plains)}) decrypts to the "
                   f"same polynomials, and every output row to the golden network's "
                   f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+    return behz_launches
 
 
 DECODE = {"order": 64, "degree": 12, "delta": 0.5}  # the reference's defaults
@@ -2245,7 +2360,8 @@ TRACE_KERNELS = {"ntt_forward": r"ntt_kernel<(true|\(bool\)1)|ntt_kernelILb1",
                  "ntt_inverse": r"ntt_kernel<(false|\(bool\)0)|ntt_kernelILb0",
                  "server_ycc_dct": r"server_ycc_dct_strict_kernel",
                  "server_ycc_dct_lazy": r"server_ycc_dct_lazy_kernel",
-                 "dct8x8": r"dct8x8_kernel"}
+                 "dct8x8": r"dct8x8_kernel",
+                 "behz_floor_convert": r"behz_floor_convert_kernel"}
 
 
 @contextlib.contextmanager
@@ -2407,11 +2523,13 @@ def main() -> int:
     errs = {name: 0 for name in KERNELS}
     phase_ntt(dev, gen, errs)
     phase_server(dev, gen, errs)
+    behz_times = phase_behz(dev, gen, errs, card)
     with tempfile.TemporaryDirectory() as work:  # phase 4's streams, read again in phase 10
         launches = phase_main_paths(dev, work)
-        phase_resize_paths(dev)
+        launches["behz_floor_convert"] = phase_resize_paths(dev)
         phase_decode_paths(dev, work)
         _, times = phase_timing(dev, gen, errs, card)
+        times["behz_floor_convert"] = behz_times
         phase_resize_timing(dev, gen, card)
         phase_decode_timing(dev, card)
         phase_bench()

@@ -11,6 +11,10 @@ multiply (the role of SEAL's Evaluator::multiply/square):
      most L units is absorbed by the noise),
   4. exact Shenoy-Kumaresan conversion Bsk -> q through m_sk.
 
+On CUDA tensors steps 3 and 4 run as one kernel
+(``core/behz_kernel.py``) on the inverse NTTs' uint32 outputs; the torch
+steps below serve CPU tensors and are the kernel's oracle.
+
 ``BehzConsts`` is fhetpu's table set, built the same way from Python
 big-ints (tests hold the two equal table by table).  The steps are plain
 functions of int64 tensors: every residue is below 2^30, so ``a * b % p``
@@ -31,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from ..core import modops, ntt
+from ..core import behz_kernel, modops, ntt
 from ..trace import span
 from .params import BfvParams, _prod
 
@@ -123,7 +127,8 @@ def _ntt(x: torch.Tensor, tables) -> torch.Tensor:
 
 
 def _intt(x: torch.Tensor, tables) -> torch.Tensor:
-    return modops.to_i64(ntt.intt(modops.to_u32(x).contiguous(), tables))
+    """Inverse NTT of int64 residues [..., L, n] -> uint32 (kernel on CUDA)."""
+    return ntt.intt(modops.to_u32(x).contiguous(), tables)
 
 
 class RnsTool:
@@ -155,6 +160,12 @@ class RnsTool:
         self.b_over_bj_mod_msk = up(bc.b_over_bj_mod_msk).reshape(K - 1, 1)
         self.b_over_bj_mod_q = up(bc.b_over_bj_mod_q).reshape(K - 1, L, 1)
         self.b_mod_q = up(bc.b_mod_q)
+
+    @functools.cached_property
+    def floor_convert_table(self) -> behz_kernel.DeviceBehzTable:
+        """The floor-convert kernel's table, built at the first multiply on a
+        CUDA device; raises where the kernel cannot take the base."""
+        return behz_kernel.DeviceBehzTable.build(self.bc, self.device)
 
     def _sum_q_to_bsk(self, z: torch.Tensor) -> torch.Tensor:
         """sum_i z_i * (q/p_i mod b_j) mod b_j: [..., L, n] -> [..., K, n]."""
@@ -242,8 +253,11 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
         prod_q = _intt(torch.stack(out_q, dim=-3), tool.tables_q)
         prod_b = _intt(torch.stack(out_b, dim=-3), tool.tables_bsk)
         del out_q, out_b
-    # 3. multiply by t, fast-floor by q (in Bsk)
+    # 3. multiply by t, fast-floor by q (in Bsk); on CUDA 4. too
     with span("bfv.rns.scale_floor"):
+        if prod_q.device.type == "cuda":
+            return behz_kernel.behz_floor_convert(prod_q, prod_b, tool.floor_convert_table)
+        prod_q, prod_b = modops.to_i64(prod_q), modops.to_i64(prod_b)
         tx_q = modops.mulmod(prod_q, tool.t_mod_q, tool.qp)
         tx_b = modops.mulmod(prod_b, tool.t_mod_bsk, tool.bp)
         scaled_bsk = tool.scale_floor_to_bsk(tx_q, tx_b)

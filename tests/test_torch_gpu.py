@@ -10,6 +10,7 @@ JAX for the CPU suite and is left out there:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 
+import copy
 import dataclasses
 from types import SimpleNamespace
 
@@ -22,7 +23,7 @@ from fhetpu_torch.bfv.encoder import FractionalEncoder
 from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
-from fhetpu_torch.core import dct_kernel, ntt, ntt_kernel, server_kernel
+from fhetpu_torch.core import behz_kernel, dct_kernel, modops, ntt, ntt_kernel, server_kernel
 from fhetpu_torch.parallel import halo
 from fhetpu_torch.parallel.mesh import make_mesh, map_blocks
 from fhetpu_torch.pipelines import resize as rz
@@ -302,9 +303,9 @@ def _ntt_launches():
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
     """rns.multiply (sizes 2x2 and 3x2) and relinearize (dbc 0 and 16) on
-    CUDA tensors run the NTT kernels on the q and Bsk bases and give the
-    residues of the same ops on the CPU, which the CPU tests hold equal to
-    fhetpu's."""
+    CUDA tensors run the NTT kernels on the q and Bsk bases, and each
+    multiply the floor-convert kernel once, and give the residues of the
+    same ops on the CPU, which the CPU tests hold equal to fhetpu's."""
     par = BfvParams.create(n=n, t=T)
     kg = crypto.KeyGenerator(par, seed=n)
     enc = crypto.Encryptor(par, kg.public_key(), seed=n + 1)
@@ -314,10 +315,12 @@ def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
     cpu, gpu = Evaluator(par, device="cpu"), Evaluator(par, device=cuda)
     for x, y in ((a, a[::-1].copy()), (b, a)):
         before = _ntt_launches()
+        floor_convert = behz_kernel.behz_floor_convert.launches
         got = rns.multiply(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda),
                            gpu.rns_tool)
         torch.cuda.synchronize()
         assert all(c > p for c, p in zip(_ntt_launches(), before))
+        assert behz_kernel.behz_floor_convert.launches == floor_convert + 1
         want = rns.multiply(torch.from_numpy(x), torch.from_numpy(y), cpu.rns_tool)
         assert torch.equal(got.cpu(), want)
     prod = cpu.multiply(Ct(torch.from_numpy(a)), Ct(torch.from_numpy(a[::-1].copy())))
@@ -328,6 +331,130 @@ def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
         torch.cuda.synchronize()
         assert _ntt_launches() == (before[0] + 1, before[1] + 1)
         assert torch.equal(got.data.cpu(), cpu.relinearize(prod, rk).data)
+
+
+def _torch_floor_convert(tool, prod_q, prod_b):
+    """BEHZ steps 3 and 4 as the torch steps compute them: the kernel's
+    oracle, on the same device."""
+    tx_q = modops.mulmod(modops.to_i64(prod_q), tool.t_mod_q, tool.qp)
+    tx_b = modops.mulmod(modops.to_i64(prod_b), tool.t_mod_bsk, tool.bp)
+    return tool.convert_bsk_to_q(tool.scale_floor_to_bsk(tx_q, tx_b)), tx_b, tx_q
+
+
+def _alpha(tool, prod_q, prod_b):
+    """Shenoy-Kumaresan's alpha in [0, m_sk) as convert_bsk_to_q computes
+    it before centring, its sum over B (acc), and step 3's f and t x_bsk."""
+    _, tx_b, tx_q = _torch_floor_convert(tool, prod_q, prod_b)
+    s = tool.scale_floor_to_bsk(tx_q, tx_b)
+    nb, msk = tool.bc.K - 1, tool.bc.m_sk
+    z = modops.mulmod(s[..., :nb, :], tool.bhat_inv_mod_b, tool.bp[:nb])
+    acc = modops.mulmod(z, tool.b_over_bj_mod_msk, msk).sum(dim=-2) % msk
+    f = tool._sum_q_to_bsk(modops.mulmod(tx_q, tool.qhat_inv_mod_q, tool.qp))
+    return (acc - s[..., nb, :]) % msk * tool.bc.b_inv_mod_msk % msk, acc, f, tx_b
+
+
+def _with_alpha(tool, prod_q, prod_b, alpha):
+    """prod_b with its m_sk row chosen so that alpha is ``alpha`` ([...],
+    the same at every coefficient): alpha = (acc - s_msk) B^-1 with acc
+    free of that row and s_msk = (t x_msk - f_msk) q^-1, solved for x_msk."""
+    par, msk = tool.par, tool.bc.m_sk
+    _, acc, f, _ = _alpha(tool, prod_q, prod_b)
+    s_msk = (acc - alpha[..., None] * (par.B % msk)) % msk
+    tx = (s_msk * (par.q % msk) + f[..., -1, :]) % msk
+    x = modops.to_i64(prod_b).clone()
+    x[..., -1, :] = tx * pow(par.t % msk, msk - 2, msk) % msk
+    return x.to(torch.uint32)
+
+
+FLOOR_CONVERT_CASES = ([(n, False, i) for n in (4096, 8192) for i in ("random", "edges", "alpha")]
+                       + [(16384, True, i) for i in ("random", "edges", "alpha")]
+                       + [(2048, False, "random"), (16384, False, "random"), (4096, False, "wide")])
+
+
+@pytest.mark.parametrize("n,native,inputs", FLOOR_CONVERT_CASES,
+                         ids=[f"{'native' if v else 'seal'}-{n}-{i}" for n, v, i in FLOOR_CONVERT_CASES])
+def test_floor_convert_kernel_equals_torch_steps(cuda, n, native, inputs):
+    """behz_floor_convert gives exactly convert_bsk_to_q(scale_floor_to_bsk(
+    t x_q, t x_bsk)) on the same CUDA tensors, at n = 4096 and 8192 and at
+    the chooser's largest L (16, native n = 16384): on random residues
+    (some with t x_bsk < f), on 0 and p - 1 in every base, with alpha at 0,
+    m_sk/2 - 1, m_sk/2 and m_sk - 1 (the m_sk residue chosen), and ("wide")
+    on M * n = 16385 * 4096 positions, past 65,535 blocks of 256 threads
+    of 4 coefficients.  Each call adds one launch and M * n positions."""
+    par = (BfvParams.create_native if native else BfvParams.create)(n=n, t=T)
+    tool = rns.RnsTool(par, cuda)
+    msk = par.m_sk
+    rng = np.random.default_rng(n + 3 * native)
+    prefix = {"random": (3, 5), "edges": (4,), "alpha": (2, 4), "wide": (16385,)}[inputs]
+    if inputs == "wide":
+        gen = torch.Generator(device=cuda).manual_seed(n)
+
+        def draw(primes):
+            p = torch.tensor(primes, dtype=torch.int64, device=cuda).reshape(-1, 1)
+            return (torch.randint(0, 1 << 62, prefix + (len(primes), n), generator=gen,
+                                  device=cuda, dtype=torch.int64) % p).to(torch.uint32)
+
+        xq, xb = draw(par.q_primes), draw(par.bsk_primes)
+    else:
+        xq = torch.from_numpy(_residues(rng, par.q_primes, prefix, n)).to(cuda)
+        xb = torch.from_numpy(_residues(rng, par.bsk_primes, prefix, n)).to(cuda)
+    if inputs == "edges":
+        qp1 = torch.tensor(par.q_primes, device=cuda).reshape(-1, 1) - 1
+        bp1 = torch.tensor(par.bsk_primes, device=cuda).reshape(-1, 1) - 1
+        xq, xb = modops.to_i64(xq), modops.to_i64(xb)
+        xq[0], xb[0] = 0, 0
+        xq[1], xb[1] = qp1, bp1
+        xq[2, :, 0::2], xb[2, :, 0::2] = 0, 0  # 0 and p - 1 alternating
+        xq[2, :, 1::2], xb[2, :, 1::2] = qp1, bp1
+        xq[3, :, 1::2], xb[3, :, 0::2] = qp1, bp1  # against random residues
+        xq, xb = xq.to(torch.uint32), xb.to(torch.uint32)
+    if inputs == "alpha":
+        want_alpha = torch.tensor([0, msk // 2 - 1, msk // 2, msk - 1], device=cuda)
+        xb = _with_alpha(tool, xq, xb, want_alpha.expand(prefix))
+        got_alpha = _alpha(tool, xq, xb)[0]
+        assert torch.equal(got_alpha, want_alpha.reshape(1, 4, 1).expand(got_alpha.shape))
+    before = (behz_kernel.behz_floor_convert.launches, behz_kernel.behz_floor_convert.positions)
+    got = behz_kernel.behz_floor_convert(xq, xb, tool.floor_convert_table)
+    torch.cuda.synchronize()
+    assert (behz_kernel.behz_floor_convert.launches - before[0],
+            behz_kernel.behz_floor_convert.positions - before[1]) == (1, int(np.prod(prefix)) * n)
+    want, _, _ = _torch_floor_convert(tool, xq, xb)
+    assert got.dtype == torch.int64 and got.shape == xq.shape
+    assert torch.equal(got, want)
+    if inputs == "random":
+        _, _, f, tx_b = _alpha(tool, xq, xb)
+        assert (tx_b < f).any() and (tx_b >= f).any()
+
+
+def test_floor_convert_kernel_refuses_what_it_cannot_take(cuda):
+    """An L the kernel is not built for (L = 1 at n = 1024), K other than
+    L + 2 and a prime from 2^30 raise when the table is built, as does a
+    table for the CPU; a prod_b of another K and a non-uint32 input raise
+    at the call.  Nothing launches and nothing falls back to the torch
+    steps."""
+    par = BfvParams.create(n=2048, t=T)
+    tool = rns.RnsTool(par, cuda)
+    table = tool.floor_convert_table
+    rng = np.random.default_rng(9)
+    xq = torch.from_numpy(_residues(rng, par.q_primes, (2,), par.n)).to(cuda)
+    xb = torch.from_numpy(_residues(rng, par.bsk_primes, (2,), par.n)).to(cuda)
+    wide_p = copy.copy(tool.bc)
+    wide_p.qp = np.array([(1 << 30) + 3] + list(par.q_primes[1:]), dtype=np.int64)
+    before = behz_kernel.behz_floor_convert.launches
+    with pytest.raises(ValueError, match="L in"):
+        rns.RnsTool(BfvParams.create(n=1024, t=T), cuda).floor_convert_table
+    with pytest.raises(ValueError, match="K = L \\+ 2"):
+        behz_kernel.check_limits(par.L, par.L + 3, par.q_primes)
+    with pytest.raises(ValueError, match="2\\^30"):
+        behz_kernel.DeviceBehzTable.build(wide_p, cuda)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        behz_kernel.DeviceBehzTable.build(tool.bc, "cpu")
+    with pytest.raises(ValueError, match="expects"):
+        behz_kernel.behz_floor_convert(xq, torch.cat([xb, xb[:, :1]], dim=1), table)
+    with pytest.raises(TypeError, match="uint32"):
+        behz_kernel.behz_floor_convert(modops.to_i64(xq), xb, table)
+    assert behz_kernel.behz_floor_convert.launches == before
+    assert table.blocks >= torch.cuda.get_device_properties(cuda).multi_processor_count
 
 
 @pytest.mark.parametrize("n,mode,ch,hw", [(4096, rz.BILINEAR, 3, 4), (8192, rz.BICUBIC, 1, 4)],

@@ -25,7 +25,7 @@ from fhetpu_torch.bfv import crypto, golden, rns
 from fhetpu_torch.bfv.encoder import FractionalEncoder
 from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
-from fhetpu_torch.core import modops
+from fhetpu_torch.core import behz_kernel, modops
 
 torch.set_num_threads(2)
 
@@ -219,3 +219,104 @@ def test_chains_decrypt_to_golden_at_4096():
     want = golden.mult(golden.mult(p[0], p[0], T), p[0], T)
     assert np.array_equal(dec.decrypt_batch(_port(cube))[0], want)
     assert abs(encoder.decode_batch(want[None])[0] - 1.5 ** 3) < 1e-6
+
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _fold(r, p):
+    return np.minimum(r, (r - p) & _M32)
+
+
+def _lazy_mul(x, pair, p):
+    w, ws = pair
+    return (x * w - ((x * ws) >> np.uint64(32)) * p) & _M32
+
+
+def _lazy_sub(a, b, p):
+    return _fold(_fold((a + 2 * p - b) & _M32, 2 * p), p)
+
+
+def _emulate_floor_convert(words, L, xq, xb):
+    """csrc/behz_floor_convert.cu's arithmetic, word for word, on uint64
+    arrays holding 32-bit values: reads the packed table at the kernel's
+    offsets (Layout), so the packing is checked with the algebra."""
+    K, nb = L + 2, L + 1
+    words = words.astype(np.uint64)
+    qp, bp = words[:L], words[L:L + K]
+    pr = words[L + K:].reshape(-1, 2)
+    kA, kU = 0, L
+    kV = kU + K
+    kG = kV + L * K
+    kE = kG + nb
+    kBQ = kE + nb * L
+    kNBQ = kBQ + L
+    assert len(pr) == kNBQ + L
+    msk = bp[K - 1]
+    zq = [_fold(_lazy_mul(xq[:, i], pr[kA + i], qp[i]), qp[i]) for i in range(L)]
+    zb = []
+    for k in range(K):
+        f = np.zeros_like(xq[:, 0])
+        for i in range(L):
+            f = _fold(f + _lazy_mul(zq[i], pr[kV + i * K + k], bp[k]), 2 * bp[k])
+        zb.append(_lazy_sub(_lazy_mul(xb[:, k], pr[kU + k], bp[k]), f, bp[k]))
+    acc = np.zeros_like(xq[:, 0])
+    for j in range(nb):
+        acc = _fold(acc + _lazy_mul(zb[j], pr[kG + j], msk), 2 * msk)
+    alpha = _lazy_sub(acc, zb[K - 1], msk)
+    neg = alpha >= (msk >> np.uint64(1))
+    am = np.where(neg, msk - alpha, alpha)
+    out = []
+    for i in range(L):
+        w = np.where(neg, pr[kBQ + i][0], pr[kNBQ + i][0])
+        ws = np.where(neg, pr[kBQ + i][1], pr[kNBQ + i][1])
+        y = _lazy_mul(am, (w, ws), qp[i])
+        for j in range(nb):
+            y = _fold(y + _lazy_mul(zb[j], pr[kE + j * L + i], qp[i]), 2 * qp[i])
+        out.append(_fold(y, qp[i]))
+    return np.stack(out, axis=1), alpha
+
+
+CHAINS = [(n, False) for n in (2048, 4096, 8192, 16384)] + [(n, True) for n in (2048, 4096, 8192, 16384)]
+
+
+@pytest.mark.parametrize("n,native", CHAINS, ids=[f"{'native' if v else 'seal'}-{n}" for n, v in CHAINS])
+def test_floor_convert_kernel_tables(n, native):
+    """The BEHZ floor-convert kernel's host table for the chooser's chains:
+    every constant below its prime with its exact Shoup companion, (L, K)
+    within the kernel's limits, the packed words at the kernel's size; and
+    the kernel's arithmetic, emulated on the packed words, gives
+    convert_bsk_to_q(scale_floor_to_bsk(t x_q, t x_bsk)) on random
+    residues, on 0 and p - 1 in every base, and at both sides of alpha's
+    centring."""
+    par = (BfvParams.create_native if native else BfvParams.create)(n=n, t=T)
+    bc = rns.get_behz(par)
+    assert par.L in behz_kernel.KERNEL_L and bc.K == par.L + 2
+    behz_kernel.check_limits(bc.L, bc.K, tuple(par.q_primes) + par.bsk_primes)
+    words = behz_kernel.pack_table(bc)
+    assert words.dtype == np.uint32
+    pairs = words[bc.L + bc.K:].reshape(-1, 2).astype(object)
+    at = 0
+    for name, w, p in behz_kernel.table_parts(bc):
+        assert w.shape == p.shape and (w >= 0).all() and (w < p).all(), name
+        for (wi, si), x, q in zip(pairs[at:at + w.size], w.reshape(-1), p.reshape(-1)):
+            assert wi == x and si == (int(x) << 32) // int(q), name
+        at += w.size
+    assert at == len(pairs)
+    # inputs: random, all 0, all p - 1, and a random row of each
+    rng = np.random.default_rng(n + native)
+    qp = np.asarray(par.q_primes, dtype=np.uint64).reshape(1, -1, 1)
+    bp = np.asarray(par.bsk_primes, dtype=np.uint64).reshape(1, -1, 1)
+    m, cols = 4, 256
+    xq = rng.integers(0, 1 << 62, size=(m, par.L, cols), dtype=np.uint64) % qp
+    xb = rng.integers(0, 1 << 62, size=(m, bc.K, cols), dtype=np.uint64) % bp
+    xq[1], xb[1] = 0, 0
+    xq[2], xb[2] = (qp - 1)[0], (bp - 1)[0]
+    tool = rns.RnsTool(par, "cpu")
+    tq, tb = torch.from_numpy(xq.astype(np.int64)), torch.from_numpy(xb.astype(np.int64))
+    tx_q = modops.mulmod(tq, tool.t_mod_q, tool.qp)
+    want = tool.convert_bsk_to_q(tool.scale_floor_to_bsk(tx_q, modops.mulmod(tb, tool.t_mod_bsk, tool.bp)))
+    got, alpha = _emulate_floor_convert(words, par.L, xq, xb)
+    assert np.array_equal(got.astype(np.int64), want.numpy())
+    half = par.m_sk // 2
+    assert (alpha < half).any() and (alpha >= half).any()
