@@ -5,7 +5,7 @@ with the same file protocol, in three modes chosen by the stream and flags:
 
 * harmonic streams (``client_decode --send --harmonics``): the expansion of
   each channel's encrypted Fourier harmonics at every output position, on
-  the device, with plaintext weights (``rle_decode.expand_harmonics_batched``).
+  the device, with plaintext weights (``rle_decode.serve_harmonics_channel``).
   Reads params.txt only: no secret key and no evaluation keys.
 * ``--pure-fhe`` on pair streams: the batched homomorphic Taylor step per
   (value, count) pair on the device, BEHZ ct x ct and relinearization
@@ -107,9 +107,9 @@ def _run_harmonics(args, ev, reader, writer, positions, t):
                 raise SystemExit(f"harmonic stream truncated in channel {ch}")
             harm = Ct(torch.from_numpy(cts).to(ev.device))
             with t.span(len(positions)):
-                out = rd.expand_harmonics_batched(ev, harm, positions, order, degree)
+                out = rd.serve_harmonics_channel(ev, harm, positions, order, degree)
                 _sync(ev)
-            writer.append(ev.transform_from_ntt(out).data.cpu().numpy())
+            writer.append(out.data.cpu().numpy())
             del harm, out
             if args.verbose:
                 print(f"channel {ch}: {H} harmonics", file=sys.stderr)

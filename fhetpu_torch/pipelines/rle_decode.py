@@ -41,6 +41,7 @@ import torch
 from ..bfv.crypto import centered_lift_plain
 from ..bfv.evaluator import Ct, Evaluator
 from ..core import modops, ntt
+from ..trace import span
 
 M_PI = math.pi
 
@@ -320,6 +321,14 @@ def harmonic_weight_tables(ev: Evaluator, positions: np.ndarray, order: int,
     cache = _ev_cache(ev)
     if key in cache:
         return cache[key]
+    with span("pipelines.rle_decode.weight_tables"):
+        tab = _build_weight_tables(ev, pos, order, degree)
+    cache[key] = tab
+    return tab
+
+
+def _build_weight_tables(ev: Evaluator, pos: np.ndarray, order: int,
+                         degree: int) -> torch.Tensor:
     par = ev.params
     H, P = 2 * degree + 1, len(pos)
     W = np.ones((H, P))
@@ -344,9 +353,7 @@ def harmonic_weight_tables(ev: Evaluator, positions: np.ndarray, order: int,
         c = c[:, None, :]
         lifted[k * P:(k + 1) * P] = torch.where(c >= thr, c - t + ev.p, c).to(torch.uint32)
     del c_dev
-    tab = ntt.ntt(lifted, par.tables_q).reshape(H, P, par.L, par.n)
-    cache[key] = tab
-    return tab
+    return ntt.ntt(lifted, par.tables_q).reshape(H, P, par.L, par.n)
 
 
 def expand_harmonics_batched(
@@ -356,15 +363,32 @@ def expand_harmonics_batched(
     positions through the cached weight tables: one int64 accumulator
     [P, size, L, n], one harmonic's tables widened from uint32 at a time,
     reduced once at the end.  Bit-identical to expand_harmonics_server.
-    Returns NTT form, int64."""
-    tabs = harmonic_weight_tables(ev, positions, order, degree)
-    hn = modops.to_i64(ev.transform_to_ntt(harm).data)  # [H, size, L, n]
-    acc = torch.zeros((tabs.shape[1],) + tuple(hn.shape[1:]), dtype=torch.int64,
-                      device=hn.device)
-    for k in range(tabs.shape[0]):
-        acc += modops.mulmod(tabs[k].to(torch.int64)[:, None], hn[k][None], ev.p)
-    acc %= ev.p  # a sum of H residues below p: below 2^35
+    Returns NTT form, int64.
+
+    Counts its ``calls`` and its modular ``products`` (H * P * size * L * n
+    a call) as attributes of the function."""
+    with span("pipelines.rle_decode.expand"):
+        tabs = harmonic_weight_tables(ev, positions, order, degree)
+        hn = modops.to_i64(ev.transform_to_ntt(harm).data)  # [H, size, L, n]
+        acc = torch.zeros((tabs.shape[1],) + tuple(hn.shape[1:]), dtype=torch.int64,
+                          device=hn.device)
+        for k in range(tabs.shape[0]):
+            acc += modops.mulmod(tabs[k].to(torch.int64)[:, None], hn[k][None], ev.p)
+        acc %= ev.p  # a sum of H residues below p: below 2^35
+    expand_harmonics_batched.calls += 1
+    expand_harmonics_batched.products += tabs.shape[0] * acc.numel()
     return Ct(acc, True)
+
+
+expand_harmonics_batched.calls = expand_harmonics_batched.products = 0
+
+
+def serve_harmonics_channel(ev: Evaluator, harm: Ct, positions: np.ndarray, order: int,
+                            degree: int) -> Ct:
+    """The harmonic decode server's step for one channel: the expansion of
+    its encrypted harmonics [H, size, L, n] at every position, returned in
+    coefficient form, [P, size, L, n] uint32, as the server writes it."""
+    return ev.transform_from_ntt(expand_harmonics_batched(ev, harm, positions, order, degree))
 
 
 def expand_harmonics_server(

@@ -1,7 +1,8 @@
 """The program's spans (``fhetpu_torch/trace.py``) on the CPU: one shared
 no-op with no profiler on; under ``torch.profiler`` the resize tile (4x4 ->
-3x3 at n=2048) emits the spans PERF.md lists, nested as it lists them, and
-gives the same residues as without the profiler."""
+3x3 at n=2048) and the harmonic decode server's step (6 positions, degree
+2, n=2048) emit the spans PERF.md lists, nested as it lists them, and give
+the same residues as without the profiler."""
 
 from collections import Counter
 
@@ -13,9 +14,10 @@ from torch.profiler import ProfilerActivity, profile
 from fhetpu_torch import trace
 from fhetpu_torch.bfv import crypto
 from fhetpu_torch.bfv.encoder import FractionalEncoder
-from fhetpu_torch.bfv.evaluator import Evaluator
+from fhetpu_torch.bfv.evaluator import Ct, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.pipelines import resize as rz
+from fhetpu_torch.pipelines import rle_decode as rd
 
 torch.set_num_threads(2)
 
@@ -28,10 +30,11 @@ ENCRYPTED = {TILE: None, "pipelines.resize.gather": TILE, MULTIPLY: TILE,
              "bfv.rns.convert": MULTIPLY}
 PLAIN = {TILE: None, "pipelines.resize.gather": TILE, "bfv.evaluator.transform": TILE,
          "bfv.evaluator.multiply_plain": TILE, "bfv.evaluator.linear": TILE}
+EXPAND, TABLES = "pipelines.rle_decode.expand", "pipelines.rle_decode.weight_tables"
 PROGRAM = {"pipelines.resize.resize_tile", "pipelines.resize.gather",
            "bfv.evaluator.transform", "bfv.evaluator.multiply_plain", "bfv.evaluator.linear",
            "bfv.evaluator.multiply", "bfv.rns.extend", "bfv.rns.tensor",
-           "bfv.rns.scale_floor", "bfv.rns.convert"}
+           "bfv.rns.scale_floor", "bfv.rns.convert", EXPAND, TABLES}
 
 
 def _spans(prof):
@@ -111,3 +114,53 @@ def test_the_tile_emits_the_listed_spans_nested_as_listed(tile):
 def test_the_profiler_leaves_the_residues_as_they_are(tile):
     _, off, on, _ = tile
     assert off.dtype == on.dtype == torch.uint32 and torch.equal(off, on)
+
+
+@pytest.fixture(scope="module")
+def decode():
+    """One channel's harmonics (degree 2, 5 harmonics) expanded at 6
+    positions by the server's step, with the weight tables built under the
+    profiler and then cached: (output without, output with the profiler,
+    expand_harmonics_server then transform_from_ntt, the program's spans in
+    the order they opened, the counters' increments, the ring's shape)."""
+    n, t, order, degree = 2048, 1 << 14, 64, 2
+    par = BfvParams.create(n=n, t=t)
+    encoder = FractionalEncoder(t, n)
+    pairs = [(200, 2), (13, 3), (255, 1)]
+    harm = rd.fourier_harmonics_host(pairs, order, degree, 0.5)
+    kg = crypto.KeyGenerator(par, seed=63)
+    cts = crypto.Encryptor(par, kg.public_key(), seed=64).encrypt_batch(
+        encoder.encode_batch(harm))
+    ev = Evaluator(par, encoder, device="cpu")
+    pos = np.arange(6)
+    ct = Ct(torch.from_numpy(cts))
+    fn = rd.expand_harmonics_batched
+    calls, products = fn.calls, fn.products
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = rd.serve_harmonics_channel(ev, ct, pos, order, degree)
+    counted = (fn.calls - calls, fn.products - products)
+    off = rd.serve_harmonics_channel(ev, ct, pos, order, degree)
+    server = ev.transform_from_ntt(rd.expand_harmonics_server(ev, ct, pos, order, degree))
+    opened = [(e.name, e.cpu_parent.name if e.cpu_parent is not None else None)
+              for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+              if e.name in PROGRAM]
+    return off, on, server, opened, counted, (2 * degree + 1, len(pos), 2, par.L, n)
+
+
+def test_the_decode_step_emits_its_spans_and_counts_its_products(decode):
+    """The expansion, with the harmonics' forward transform and the first
+    call's table build inside it, then the output's inverse transform; one
+    call of H * P * size * L * n modular products."""
+    _, _, _, opened, counted, (H, P, size, L, n) = decode
+    assert opened == [(EXPAND, None), (TABLES, EXPAND), ("bfv.evaluator.transform", EXPAND),
+                      ("bfv.evaluator.transform", None)]
+    assert counted == (1, H * P * size * L * n)
+
+
+def test_the_decode_step_keeps_its_residues(decode):
+    """The same residues with the profiler on and off, and those of the
+    stacked-product expansion followed by the inverse transform."""
+    off, on, server, _, _, (_, P, size, L, n) = decode
+    assert not off.ntt_form and off.data.dtype == torch.uint32
+    assert off.data.shape == (P, size, L, n)
+    assert torch.equal(off.data, on.data) and torch.equal(off.data, server.data)
