@@ -29,6 +29,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      of both at each shape and per bilinear image (its six launches) beside
      the kernel's bound (72 B a position at L = 4, or its fewest int32
      operations);
+  3c. the harmonic expansion kernel (the decode server's step on the card)
+     against its plain torch version (rle_decode.expand_harmonics_plain),
+     bit-equal, at the decode cell's shape (H = 25 harmonics, P = 2304
+     positions, size 2, n = 2048, L = 2) on random residues, and with every
+     table word and harmonic residue at q - 1 (P = 64); one launch and
+     H * P * L * n table words counted a call; CUDA-event times of both
+     beside the kernel's bound (its bytes once over HBM's rate);
   4. the main paths on a seeded 48x48 RGB image encrypted by the client
      (coefficient form, n chosen by the client: 4096), each driven with
      every launch count set to 0 just before it and read just after:
@@ -64,7 +71,8 @@ Phases, each printed on its own line; any failure exits non-zero:
         client_decode -> server_decode --device cuda -> client_decode,
         both NTT kernels launched and no JPEG kernel, pixels within 1 of
         trunc+clamp of the exact series, channel 0's first 64 positions
-        equal to expand_harmonics_server on the card and on the CPU;
+        equal to expand_harmonics_server on the card and on the CPU, the
+        expansion kernel launched once a channel;
         j. the trusted overload on a pair stream (n = 4096): host work
         only, no kernel launched, pixels within 1 of the series;
         k. pure-FHE: the library step of tests/test_decode.py's envelope
@@ -212,6 +220,9 @@ KERNELS = {
     # BEHZ steps 3-4, which fhetpu computes as XLA ops, not a TPU kernel
     "behz_floor_convert": ("fhetpu_torch/csrc/behz_floor_convert.cu",
                            "fhetpu/bfv/rns.py:197"),
+    # the decode server's expansion, which fhetpu leaves to XLA as a jitted fori_loop
+    "harmonic_expand": ("fhetpu_torch/csrc/harmonic_expand.cu",
+                        "fhetpu/pipelines/rle_decode.py:384"),
 }
 
 
@@ -242,7 +253,8 @@ def resource_usage(lib_path: str) -> list:
         if found:
             short = re.search(r"(server_ycc_dct_strict_kernel|server_ycc_dct_lazy_kernelILi\d"
                               r"|dct8x8_kernel|ntt_kernelILb\dELi\d+"
-                              r"|behz_floor_convert_kernelILi\d+ELi\d)", found.group(1))
+                              r"|behz_floor_convert_kernelILi\d+ELi\d"
+                              r"|harmonic_expand_kernelILi\d)", found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
             fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
@@ -297,14 +309,15 @@ def server_occupancy() -> str:
 def counters() -> dict:
     """Each kernel's (wrapper, attribute) where the wrapper counts its
     launches; the fused wrapper counts its lazy kernel apart."""
-    from fhetpu_torch.core import behz_kernel, dct_kernel, ntt_kernel, server_kernel
+    from fhetpu_torch.core import behz_kernel, dct_kernel, expand_kernel, ntt_kernel, server_kernel
 
     return {"server_ycc_dct": (server_kernel.server_ycc_dct_fused, "launches"),
             "ntt_forward": (ntt_kernel.ntt_forward, "launches"),
             "ntt_inverse": (ntt_kernel.ntt_inverse, "launches"),
             "server_ycc_dct_lazy": (server_kernel.server_ycc_dct_fused, "lazy_launches"),
             "dct8x8": (dct_kernel.dct8x8_kernel, "launches"),
-            "behz_floor_convert": (behz_kernel.behz_floor_convert, "launches")}
+            "behz_floor_convert": (behz_kernel.behz_floor_convert, "launches"),
+            "harmonic_expand": (expand_kernel.harmonic_expand, "launches")}
 
 
 def reset_launches():
@@ -506,6 +519,57 @@ def phase_behz(dev, gen, errs, card) -> tuple:
           f"{b_by} ({image_bytes / 1e9:.3f} GB, integer {t_ops:.4f} ms); "
           f"{100 * b_ms / image_ms[0]:.1f} % of it reached [{card}]", flush=True)
     return image_ms[0], image_ms[1], b_ms, b_by
+
+
+def phase_expand(dev, gen, errs, card) -> tuple:
+    """Phase 3c: the harmonic expansion kernel against its plain torch
+    version (rle_decode.expand_harmonics_plain) on the card at the decode
+    cell's shape, on random residues and with every input at q - 1 (P = 64):
+    bit-equal, one launch and H * P * L * n table words a call; CUDA-event
+    times of both beside the kernel's bound, its bytes once over HBM's rate.
+    Returns (kernel ms, torch ms, bound ms, what bounds it) a channel."""
+    import torch
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.core import expand_kernel
+    from fhetpu_torch.pipelines import rle_decode as rd
+
+    fn = expand_kernel.harmonic_expand
+    par = BfvParams.create(n=2048)
+    qs, L, n = par.q_primes, par.L, par.n
+    p = torch.tensor(qs, dtype=torch.int64, device=dev).reshape(-1, 1)
+    H, P, S = 2 * DECODE["degree"] + 1, IMG_HW * IMG_HW, 2
+    for what, tabs, harm in (
+            ("random", rand_residues((H, P), qs, n, gen, dev),
+             rand_residues((H, S), qs, n, gen, dev)),
+            ("every input at q-1", worst_residues((H, 64), qs, n, dev),
+             worst_residues((H, S), qs, n, dev))):
+        before = (fn.launches, fn.words)
+        got = fn(tabs, harm, qs)
+        torch.cuda.synchronize()
+        counted = (fn.launches - before[0], fn.words - before[1])
+        check(counted == (1, tabs.numel()), f"expansion kernel, {what}: counted {counted}")
+        want = rd.expand_harmonics_plain(tabs, harm.to(torch.int64), p)
+        e = max_abs_err(got, want)
+        errs["harmonic_expand"] = max(errs["harmonic_expand"], e)
+        check(got.dtype == torch.uint32 and got.shape == want.shape and e == 0,
+              f"expansion kernel vs the torch loop, {what}: max abs err {e}")
+        del got, want
+    torch.cuda.empty_cache()
+    tabs = rand_residues((H, P), qs, n, gen, dev)
+    harm = rand_residues((H, S), qs, n, gen, dev)
+    harm64 = harm.to(torch.int64)
+    k_ms = time_ms(lambda: fn(tabs, harm, qs), 20)
+    t_ms = time_ms(lambda: rd.expand_harmonics_plain(tabs, harm64, p), 3)
+    nbytes = (tabs.numel() + harm.numel() + P * S * L * n) * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 3c: harmonic expansion H={H} P={P} size {S} n={n} L={L}: kernel bit-equal to "
+          f"the torch loop on random residues and with every input at q-1 (P=64), 1 launch and "
+          f"H*P*L*n table words a call; kernel {k_ms:.4f} ms, torch loop {t_ms:.3f} ms; bound "
+          f"{b_ms:.4f} ms by bytes ({nbytes / 1e9:.4f} GB; {H * P * S * L * n / 1e9:.3f} G "
+          f"products); {100 * b_ms / k_ms:.1f} % of it reached [{card}]", flush=True)
+    del tabs, harm, harm64
+    torch.cuda.empty_cache()
+    return k_ms, t_ms, b_ms, "bytes"
 
 
 def _float_dct(block8):
@@ -887,7 +951,8 @@ def phase_decode_paths(dev, work):
         residue and decodes within 0.25 of the series; then the CLI
         (--pure-fhe, client --relin) on a 4x4 image of two runs per channel
         at n=16384: both NTT kernels launch on q and Bsk, pixels within 1
-        of the series."""
+        of the series.
+    Returns the expansion kernel's launches on 4i."""
     import torch
     from fhetpu_torch.bfv import crypto
     from fhetpu_torch.bfv.encoder import FractionalEncoder
@@ -920,6 +985,8 @@ def phase_decode_paths(dev, work):
         check(got["ntt_forward"] > 0 and got["ntt_inverse"] > 0,
               f"decode harmonics: the NTT kernels never launched: {got}")
         check(all(got[k] == 0 for k in jpeg_kernels), f"decode harmonics: a JPEG kernel ran: {got}")
+        check(got["harmonic_expand"] == 3, f"decode harmonics: not one expansion a channel: {got}")
+        expand_launches = got["harmonic_expand"]
         rargs = client_decode.parser().parse_args(["--recieve", "-i", s2c] + common)
         t0 = time.perf_counter()
         vals = client_decode.recieve_arrays(rargs)
@@ -1042,6 +1109,7 @@ def phase_decode_paths(dev, work):
           f"{t_server:.3f} s (host clock); peak device memory {peak / 2**30:.3f} GiB; decoded "
           f"values within {werr:.3g} of the series, pixels within {worst:.0f} of trunc+clamp; "
           f"launches {got}, by base {sorted(bases.items())}", flush=True)
+    return expand_launches
 
 
 def step_oracle(val, cnt, index, order, degree, delta, positions):
@@ -2361,7 +2429,8 @@ TRACE_KERNELS = {"ntt_forward": r"ntt_kernel<(true|\(bool\)1)|ntt_kernelILb1",
                  "server_ycc_dct": r"server_ycc_dct_strict_kernel",
                  "server_ycc_dct_lazy": r"server_ycc_dct_lazy_kernel",
                  "dct8x8": r"dct8x8_kernel",
-                 "behz_floor_convert": r"behz_floor_convert_kernel"}
+                 "behz_floor_convert": r"behz_floor_convert_kernel",
+                 "harmonic_expand": r"harmonic_expand_kernel"}
 
 
 @contextlib.contextmanager
@@ -2524,12 +2593,14 @@ def main() -> int:
     phase_ntt(dev, gen, errs)
     phase_server(dev, gen, errs)
     behz_times = phase_behz(dev, gen, errs, card)
+    expand_times = phase_expand(dev, gen, errs, card)
     with tempfile.TemporaryDirectory() as work:  # phase 4's streams, read again in phase 10
         launches = phase_main_paths(dev, work)
         launches["behz_floor_convert"] = phase_resize_paths(dev)
-        phase_decode_paths(dev, work)
+        launches["harmonic_expand"] = phase_decode_paths(dev, work)
         _, times = phase_timing(dev, gen, errs, card)
         times["behz_floor_convert"] = behz_times
+        times["harmonic_expand"] = expand_times
         phase_resize_timing(dev, gen, card)
         phase_decode_timing(dev, card)
         phase_bench()

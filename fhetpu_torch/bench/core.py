@@ -175,7 +175,8 @@ class CoreBench:
 
         def step(h):  # expand every position, fold position 0 back into h
             out = rd.expand_harmonics_batched(ev, Ct(h, True), positions, order, degree).data
-            return modops.to_u32(modops.addmod(modops.to_i64(h), out[0][None], ev.p))
+            fold = modops.to_i64(out[0][None])
+            return modops.to_u32(modops.addmod(modops.to_i64(h), fold, ev.p))
 
         label = f"harmonics_order{order}"
         sec, k, dt = _best(step, hn, label, self.device)

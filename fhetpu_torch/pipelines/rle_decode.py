@@ -27,7 +27,8 @@ come.  Tables of plaintext weights are NTTs of centred-lifted encodings,
 built on the evaluator's device through ``core.ntt`` (the CUDA kernel on a
 card) and cached on the evaluator per value array.  Products with them are
 ``modops.mulmod`` (exact int64), where fhetpu uses Barrett: the residues are
-the same.
+the same.  The harmonic expansion runs on a card as one hand-written CUDA
+kernel (``core/expand_kernel.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 
 from ..bfv.crypto import centered_lift_plain
 from ..bfv.evaluator import Ct, Evaluator
-from ..core import modops, ntt
+from ..core import expand_kernel, modops, ntt
 from ..trace import span
 
 M_PI = math.pi
@@ -356,28 +357,43 @@ def _build_weight_tables(ev: Evaluator, pos: np.ndarray, order: int,
     return ntt.ntt(lifted, par.tables_q).reshape(H, P, par.L, par.n)
 
 
+def expand_harmonics_plain(tabs: torch.Tensor, hn: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The expansion in torch int64 ops: sum_k tabs[k, pos] * hn[k] mod p
+    for uint32 tables [H, P, L, n] and int64 harmonics [H, size, L, n] in
+    NTT form -> int64 [P, size, L, n], canonical.  One accumulator, one
+    harmonic's tables widened at a time, reduced once at the end.  The CPU
+    path of expand_harmonics_batched and the kernel's oracle."""
+    acc = torch.zeros((tabs.shape[1],) + tuple(hn.shape[1:]), dtype=torch.int64,
+                      device=hn.device)
+    for k in range(tabs.shape[0]):
+        acc += modops.mulmod(tabs[k].to(torch.int64)[:, None], hn[k][None], p)
+    acc %= p  # a sum of H residues below p: below 2^35
+    return acc
+
+
 def expand_harmonics_batched(
     ev: Evaluator, harm: Ct, positions: np.ndarray, order: int, degree: int
 ) -> Ct:
     """Expansion of encrypted harmonics [H, size, L, n] at the given
-    positions through the cached weight tables: one int64 accumulator
-    [P, size, L, n], one harmonic's tables widened from uint32 at a time,
-    reduced once at the end.  Bit-identical to expand_harmonics_server.
-    Returns NTT form, int64.
+    positions through the cached weight tables, bit-identical to
+    expand_harmonics_server; returns NTT form [P, size, L, n].  On a CUDA
+    tensor one launch of the hand-written kernel
+    (``core/expand_kernel.py``), uint32 out; on the CPU its plain version,
+    ``expand_harmonics_plain``, int64 out.
 
     Counts its ``calls`` and its modular ``products`` (H * P * size * L * n
     a call) as attributes of the function."""
     with span("pipelines.rle_decode.expand"):
         tabs = harmonic_weight_tables(ev, positions, order, degree)
-        hn = modops.to_i64(ev.transform_to_ntt(harm).data)  # [H, size, L, n]
-        acc = torch.zeros((tabs.shape[1],) + tuple(hn.shape[1:]), dtype=torch.int64,
-                          device=hn.device)
-        for k in range(tabs.shape[0]):
-            acc += modops.mulmod(tabs[k].to(torch.int64)[:, None], hn[k][None], ev.p)
-        acc %= ev.p  # a sum of H residues below p: below 2^35
+        hn = ev.transform_to_ntt(harm).data  # [H, size, L, n]
+        if hn.device.type == "cuda":
+            out = expand_kernel.harmonic_expand(tabs, modops.to_u32(hn).contiguous(),
+                                                ev.params.q_primes)
+        else:
+            out = expand_harmonics_plain(tabs, modops.to_i64(hn), ev.p)
     expand_harmonics_batched.calls += 1
-    expand_harmonics_batched.products += tabs.shape[0] * acc.numel()
-    return Ct(acc, True)
+    expand_harmonics_batched.products += tabs.shape[0] * out.numel()
+    return Ct(out, True)
 
 
 expand_harmonics_batched.calls = expand_harmonics_batched.products = 0

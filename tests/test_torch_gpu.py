@@ -23,7 +23,8 @@ from fhetpu_torch.bfv.encoder import FractionalEncoder
 from fhetpu_torch.bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
-from fhetpu_torch.core import behz_kernel, dct_kernel, modops, ntt, ntt_kernel, server_kernel
+from fhetpu_torch.core import (behz_kernel, dct_kernel, expand_kernel, modops, ntt, ntt_kernel,
+                               server_kernel)
 from fhetpu_torch.parallel import halo
 from fhetpu_torch.parallel.mesh import make_mesh, map_blocks
 from fhetpu_torch.pipelines import resize as rz
@@ -489,7 +490,9 @@ def test_harmonic_expansion_on_cuda_equals_cpu(cuda, n, t):
     """The harmonic weight tables (uint32, lifted on the card from 16- or
     32-bit coefficients) and both expansions at order 64, degree 12 over 96
     positions give the residues of the same calls on the CPU; the tables'
-    build launches the forward NTT kernel once."""
+    build launches the forward NTT kernel once.  The batched expansion on
+    the card is one launch of the expansion kernel, uint32 out, and never
+    the torch loop; on the CPU it stays int64."""
     par = BfvParams.create(n=n, t=t)
     encoder = FractionalEncoder(t, n)
     kg = crypto.KeyGenerator(par, seed=n + 7)
@@ -504,15 +507,90 @@ def test_harmonic_expansion_on_cuda_equals_cpu(cuda, n, t):
         before = _ntt_launches()
         tabs = rd.harmonic_weight_tables(ev, pos, 64, 12)
         built = tuple(c - p for c, p in zip(_ntt_launches(), before))
-        batched = rd.expand_harmonics_batched(ev, Ct(torch.from_numpy(cts).to(dev)), pos, 64, 12)
+        launches = expand_kernel.harmonic_expand.launches
+        with pytest.MonkeyPatch.context() as mp:
+            if dev == cuda:
+                mp.setattr(rd, "expand_harmonics_plain",
+                           lambda *a: pytest.fail("the torch loop ran on the card"))
+            batched = rd.expand_harmonics_batched(ev, Ct(torch.from_numpy(cts).to(dev)), pos, 64,
+                                                  12)
+        launched = expand_kernel.harmonic_expand.launches - launches
         server = rd.expand_harmonics_server(ev, Ct(torch.from_numpy(cts).to(dev)), pos, 64, 12)
         outs[str(dev)] = (tabs.cpu(), batched.data.cpu(), server.data.cpu())
-    assert built == (1, 0)
+    assert built == (1, 0) and launched == 1
     cpu, gpu = outs["cpu"], outs[str(cuda)]
     assert gpu[0].dtype == torch.uint32 and tuple(gpu[0].shape) == (25, 96, par.L, n)
+    assert cpu[1].dtype == torch.int64 and gpu[1].dtype == torch.uint32
     for a, b in zip(cpu, gpu):
-        assert torch.equal(a, b)
-    assert torch.equal(gpu[1], gpu[2])
+        assert torch.equal(modops.to_i64(a), modops.to_i64(b))
+    assert torch.equal(modops.to_i64(gpu[1]), gpu[2])
+
+
+def _worst_residues(primes, prefix, n):
+    return np.broadcast_to(np.array(primes, dtype=np.uint32)[:, None] - 1,
+                           tuple(prefix) + (len(primes), n)).copy()
+
+
+# (n, H, P, size, every input at q - 1): the decode cell's shape; a ragged
+# one; the largest H the kernel takes at size 2 on the chain of 30-bit
+# primes; n = 16 on n = 2048's primes, fewer columns than a block covers
+EXPAND_CASES = [(2048, 25, 2304, 2, False), (4096, 25, 97, 3, False),
+                (16384, 227, 2, 2, True), (2048, 25, 97, 2, True), (16, 25, 5, 3, False)]
+
+
+@pytest.mark.parametrize("n,H,P,S,worst", EXPAND_CASES)
+def test_expand_kernel_equals_torch_loop(cuda, n, H, P, S, worst):
+    """The expansion kernel gives the residues of its plain torch version
+    (expand_harmonics_plain, run on the card), uint32 and canonical, in one
+    launch that reads H * P * L * n table words; with every table word and
+    harmonic residue at q - 1 its 64-bit sums are at their largest."""
+    par = BfvParams.create(n=max(n, 2048), t=T)
+    qs = par.q_primes
+    rng = np.random.default_rng(n + P)
+    make = (lambda prefix: _worst_residues(qs, prefix, n)) if worst else (
+        lambda prefix: _residues(rng, qs, prefix, n))
+    tabs = torch.from_numpy(make((H, P))).to(cuda)
+    harm = torch.from_numpy(make((H, S))).to(cuda)
+    before = (expand_kernel.harmonic_expand.launches, expand_kernel.harmonic_expand.words)
+    got = expand_kernel.harmonic_expand(tabs, harm, qs)
+    torch.cuda.synchronize()
+    assert (expand_kernel.harmonic_expand.launches - before[0],
+            expand_kernel.harmonic_expand.words - before[1]) == (1, H * P * par.L * n)
+    p = torch.tensor(qs, dtype=torch.int64, device=cuda).reshape(-1, 1)
+    want = rd.expand_harmonics_plain(tabs, modops.to_i64(harm), p)
+    assert got.dtype == torch.uint32 and tuple(got.shape) == (P, S, par.L, n)
+    assert torch.equal(modops.to_i64(got), want)
+
+
+def test_expand_kernel_refuses_what_it_cannot_take(cuda):
+    """A CPU tensor, an int64 table, a non-contiguous or unaligned input, a
+    prime from 2^30, a size the kernel is not built for and harmonics of
+    another H raise before any launch."""
+    par = BfvParams.create(n=2048, t=T)
+    qs = par.q_primes
+    rng = np.random.default_rng(5)
+    tabs = torch.from_numpy(_residues(rng, qs, (5, 8), par.n)).to(cuda)
+    harm = torch.from_numpy(_residues(rng, qs, (5, 2), par.n)).to(cuda)
+    fn = expand_kernel.harmonic_expand
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(tabs.cpu(), harm.cpu(), qs)
+    with pytest.raises(TypeError, match="uint32"):
+        fn(modops.to_i64(tabs), harm, qs)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(tabs[:, ::2], harm, qs)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(tabs, harm.transpose(0, 1), qs)
+    shifted = torch.empty(harm.numel() + 1, dtype=torch.uint32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        fn(tabs, shifted.view(harm.shape).copy_(harm), qs)
+    with pytest.raises(ValueError, match="2\\^30"):
+        fn(tabs, harm, [(1 << 30) + 3] + list(qs[1:]))
+    with pytest.raises(ValueError, match="size"):
+        fn(tabs, harm[:, :1].contiguous(), qs)
+    with pytest.raises(ValueError, match="expects"):
+        fn(tabs, harm[:4].contiguous(), qs)
+    assert fn.launches == before
 
 
 def test_mul_plain_stacked_on_cuda_equals_cpu(cuda):
