@@ -135,14 +135,7 @@ Phases, each printed on its own line; any failure exits non-zero:
         the lazy kernel at m = 2 against its plain version and the strict
         kernel, the NTT kernels on the native q against theirs, and the lazy
         kernel's CUDA-event time beside its bound;
-     c. the four-step NTT (core/ntt4step.py, int8 products through
-        torch._int_mm) forward and inverse against the NTT kernels at the
-        four ring degrees on q;
-     d. server_compute_fn(use_fast=True) with --quantize (the lazy,
-        constant-folded network of pipelines/jpeg_fast.py) against the
-        default --quantize op at n = 4096, nb = 64: the NTT kernels launch,
-        no JPEG kernel; both CUDA-event times;
-     e. python -m fhetpu_torch.bench.core --only
+     c. python -m fhetpu_torch.bench.core --only
         ntt_sweep,ntt_fwd,ntt_inv,behz,relinearize,linear,harmonics_order16
         under its own timeout: rc 0 and every section present, its numbers
         printed.
@@ -174,8 +167,8 @@ Phases, each printed on its own line; any failure exits non-zero:
      c. client_jpeg --recieve from a FIFO: the file run's RMSError line and
         JFIF bytes.
 
-Every torch.profiler reading (phases 5, 8c, 8d and 9c, each in a fresh
-process, and 10) fails the run if the profiler saw no device time or missed
+Every torch.profiler reading (phases 5 and 9c, each in a fresh process,
+and 10) fails the run if the profiler saw no device time or missed
 a launch that the wrappers counted in its window.
 
 The last lines are a JSON object of the kernels (the BEHZ kernel's row: its
@@ -200,6 +193,24 @@ import time
 
 import numpy as np
 
+# The benchmark's roofline model (perfbench/roofline.py): bytes over HBM's
+# rate, and the fewest int32 operations of an op graph that gives each
+# kernel's output bits (the lazy graph where the primes leave headroom) as
+# (FMA-pipe, ALU-pipe, either) operations over the SMs' pipes.  NVIDIA's CUDA
+# C++ Programming Guide gives compute capability 9.0 64 results per SM per
+# clock for 32-bit integer add, multiply(-add), compare and min/max; Nsight
+# Compute's pipe table puts IMAD/IMUL on the FMA pipe and compares, min/max
+# and logic on the ALU pipe, and an add runs on either (IADD3 or IMAD.IADD).
+try:
+    from perfbench.roofline import (DISPATCH_PER_CLOCK, HBM_BYTES_PER_S, LANE_OPS_PER_CLOCK,
+                                    LAZY_ADD, LAZY_DCT, LAZY_MUL, RED, bound_s, ntt_ops,
+                                    ycc_dct_ops)
+except ModuleNotFoundError as e:
+    # perfbench/ is beside this script in a checkout; a copy of the script
+    # alone must still reach main(), which refuses to run without the repo
+    if e.name != "perfbench":
+        raise
+
 SEED = 20261016
 IMG_HW = 48  # the reference benchmark's image size (BASELINE.md)
 DEGREES = (2048, 4096, 8192, 16384)
@@ -207,7 +218,6 @@ TIMING_N = 4096
 TIMING_NB = 64  # the CLI's default --chunk-blocks
 NTT_BATCH = 301  # more polynomials than one wave of the NTT's persistent grid
 RAGGED = (1, 3, 7)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 KERNELS = {
     "server_ycc_dct": ("fhetpu_torch/csrc/server_ycc_dct_strict.cu",
@@ -444,6 +454,8 @@ def behz_work(L: int, positions: int) -> tuple:
     kernel over ``positions`` (component, coefficient) pairs: 4(L + K)
     bytes read and 8L written a position (72 B at L = 4), and the
     operations of csrc/behz_floor_convert.cu's graph."""
+    ADD = LAZY_ADD + RED  # a + b and a + b - p, then their min
+    MUL = LAZY_MUL + RED  # Shoup, then a subtraction of p and a min
     K, nb = L + 2, L + 1
     term = LAZY_MUL + ADD  # a lazy product added to a lazy sum
     sub = LAZY_ADD + 2 * RED  # a + 2p - b, made canonical
@@ -1143,29 +1155,6 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# The operation bound counts the fewest int32 operations of an op graph that
-# gives each kernel's output bits (the lazy graph where the primes leave
-# headroom: the lazy fused kernel gives the strict one's bits, and a
-# Harvey-style lazy butterfly the NTTs'), as (FMA-pipe, ALU-pipe, either)
-# operations: NVIDIA's CUDA C++ Programming Guide gives compute capability
-# 9.0 64 results per SM per clock for 32-bit integer add, multiply(-add),
-# compare and min/max; Nsight Compute's pipe table puts IMAD/IMUL on the FMA
-# pipe and compares, min/max and logic on the ALU pipe, and an add runs on
-# either (IADD3 or IMAD.IADD).  Per modular operation:
-LAZY_ADD = np.array([0, 0, 1])  # a + k*p - b, one three-input add
-ADD = np.array([0, 1, 2])  # a + b and a + b - p, then their min
-LAZY_MUL = np.array([3, 0, 0])  # Shoup: mulhi(x, w'), then x*w - q*p
-MUL = LAZY_MUL + np.array([0, 1, 1])  # then a subtraction of p and a min
-RED = np.array([0, 1, 1])  # one conditional subtraction: subtract, min
-# one lazy 8-point AAN pass (28 three-input adds, 12 products) reduced to
-# [0, m*p) by 3 subtractions after a row pass; a column pass adds the 8
-# x0.125 products and reduces its outputs (< 2p) by one subtraction
-LAZY_DCT = (8 * (28 * LAZY_ADD + 12 * LAZY_MUL + 8 * 3 * RED)
-            + 8 * (28 * LAZY_ADD + 20 * LAZY_MUL + 8 * RED))
-LANE_OPS_PER_CLOCK = np.array([64, 64])  # FMA pipe, ALU pipe, per SM
-ISSUE_PER_CLOCK = 128  # 4 warp schedulers x 32 lanes, per SM
-
-
 def _self_device_us(evt) -> float:
     """A profiler event's own device time (the attribute's name depends on
     the torch version)."""
@@ -1220,23 +1209,6 @@ def _profiled():
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         yield prof
         torch.cuda.synchronize()
-
-
-def _profile(fn, what: str) -> str:
-    """One call of fn under torch.profiler: its device time, the number of
-    device kernels it ran and their mean time, against the host clock.
-    Fails the run if the profiler missed a launch (_check_seen)."""
-    import torch
-
-    reset_launches()
-    with _profiled() as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels, dev_ms = _check_seen(prof, read_launches(), what)
-    return (f"profiled call: {dev_ms:.3f} ms device time in {kernels} kernels "
-            f"({1e3 * dev_ms / kernels:.1f} us each) against {wall:.3f} ms host clock")
 
 
 def _ntt_share(fn, what: str) -> str:
@@ -1499,37 +1471,24 @@ def phase_decode_timing(dev, card):
 def kernel_work(name, x, L, n, m) -> tuple:
     """(bytes, [FMA, ALU, either] int32 operations) that kernel ``name``
     needs for input x: x read once and the output (x's size) written once,
-    plus the table rows it reads; operations of the fewest-op graph above
-    (the lazy graphs need m = lazy_bound_multiple > 0)."""
+    plus the table rows it reads, which the benchmark's roofline leaves out;
+    operations of the roofline's fewest-op graphs (the lazy graphs need
+    m = lazy_bound_multiple > 0)."""
     assert m > 0, "the lazy op graphs need u32 headroom"
     xbytes = x.numel() * 4
     if name.startswith("ntt"):
-        polys = x.numel() // n  # (poly, limb) pairs
-        # butterfly: a lazy product, x + t, x - t + 2p, one subtraction
-        fly = LAZY_MUL + 2 * LAZY_ADD + RED
-        stages = n.bit_length() - 1
-        if name == "ntt_forward":  # values < 4p; two subtractions at the end
-            per = stages * (n // 2) * fly + n * 2 * RED
-        else:  # n^-1 folded into the last stage's products; one subtraction
-            last = 2 * LAZY_MUL + 2 * LAZY_ADD
-            per = (stages - 1) * (n // 2) * fly + (n // 2) * last + n * RED
-        return 2 * xbytes + 2 * L * n * 4, polys * per
-    threads = x.numel() // 64  # one per (block, channel, component, lane)
-    if name == "dct8x8":  # rows 0..12 and 22 of both tables
-        return 2 * xbytes + 2 * 14 * L * n * 4, threads * LAZY_DCT
-    # the fused kernels, one thread per (block, component, lane): per slot
-    # 9 products, 6 three-input adds and 3 reductions from 8p to m*p
-    steps = 3 if m == 1 else 2
-    ycc = 64 * (9 * LAZY_MUL + 6 * LAZY_ADD + 3 * steps * RED)
-    return 2 * xbytes + 2 * 24 * L * n * 4, threads // 3 * (ycc + 3 * LAZY_DCT)
+        return 2 * xbytes + 2 * L * n * 4, ntt_ops(name, x.numel() // n, n)
+    if name == "dct8x8":  # rows 0..12 and 22 of both tables; one DCT a thread
+        return 2 * xbytes + 2 * 14 * L * n * 4, x.numel() // 64 * LAZY_DCT
+    # the fused kernels, over x's blocks of 3 x 64 two-component ciphertexts
+    blocks = x.numel() // (3 * 64 * 2 * L * n)
+    return 2 * xbytes + 2 * 24 * L * n * 4, ycc_dct_ops(blocks, L, n, m)
 
 
 def bound_times(nbytes, ops, sms, clock_hz) -> tuple:
-    """(HBM ms, integer ms): the bytes over HBM's rate, and the least integer
-    time, in which each pipe runs its own operations at its rate and all of
-    them issue at the issue rate.  The bound is the larger."""
-    clocks = max(*(ops[:2] / LANE_OPS_PER_CLOCK), ops.sum() / ISSUE_PER_CLOCK)
-    return nbytes / HBM_BYTES_PER_S * 1e3, clocks / (sms * clock_hz) * 1e3
+    """(HBM ms, integer ms): the two terms of the roofline's bound_s, the
+    bytes alone and the operations alone.  The bound is the larger."""
+    return bound_s(nbytes, None, sms, clock_hz) * 1e3, bound_s(0, ops, sms, clock_hz) * 1e3
 
 
 def phase_timing(dev, gen, errs, card):
@@ -1543,7 +1502,8 @@ def phase_timing(dev, gen, errs, card):
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"phase 5: bounds from {HBM_BYTES_PER_S / 1e12} TB/s HBM and {sms} SMs x "
-          f"{clock_hz / 1e6:.0f} MHz x (64 FMA-pipe + 64 ALU-pipe int32 lanes, 128 issued)",
+          f"{clock_hz / 1e6:.0f} MHz x ({LANE_OPS_PER_CLOCK[0]} FMA-pipe + "
+          f"{LANE_OPS_PER_CLOCK[1]} ALU-pipe int32 lanes, {DISPATCH_PER_CLOCK} issued)",
           flush=True)
     par = BfvParams.create(n=TIMING_N)
     ev = Evaluator(par, device=dev)
@@ -2020,46 +1980,8 @@ def phase_sharded(dev, card):
 NATIVE_N = 8192  # the ring degree where the native chain raises the lazy kernel's m from 1 to 2
 NATIVE_BIG = 16384  # where the SEAL chain refuses the lazy kernel and the native one takes it
 NATIVE_BIG_NB = 4  # 4 x 3 x 64 x 2 x 16 x 16384 x 4 B = 1.61 GB in, as at every n
-NTT4_BATCH = 8
 BENCH_CORE_ONLY = "ntt_sweep,ntt_fwd,ntt_inv,behz,relinearize,linear,harmonics_order16"
 BENCH_CORE_TIMEOUT = 300
-
-
-def ntt4_profile() -> str:
-    """Phase 8c's profiled four-step NTT, forward, at n=4096 and B=64; run
-    by _in_fresh_process."""
-    import torch
-    from fhetpu_torch.bfv.params import BfvParams
-    from fhetpu_torch.core import ntt4step
-
-    dev = torch.device("cuda:0")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 8)
-    tables = BfvParams.create(n=TIMING_N).tables_q
-    x = rand_residues((64,), tables.primes, TIMING_N, gen, dev)
-    ntt4step.ntt4(x, tables, True)  # the first call builds the tables
-    return _profile(lambda: ntt4step.ntt4(x, tables, True), "phase 8c four-step NTT")
-
-
-def quantize_op_profile(use_fast: bool) -> str:
-    """Phase 8d's profiled --quantize op, the fast network or the default,
-    at n=4096 and nb=64; run by _in_fresh_process."""
-    import torch
-    from fhetpu_torch.bfv.evaluator import Evaluator
-    from fhetpu_torch.bfv.params import BfvParams
-    from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
-    from fhetpu_torch.pipelines.jpeg_encode import server_compute_fn
-
-    dev = torch.device("cuda:0")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 8)
-    par = BfvParams.create(n=TIMING_N)
-    quant = build_quant_tables(0)[0][ZIGZAG].astype(np.float64)
-    x = rand_residues((TIMING_NB, 3, 64, 2), par.q_primes, par.n, gen, dev)
-    op = server_compute_fn(Evaluator(par, device=dev), apply_quantize=True, quant=quant,
-                           use_fast=use_fast)
-    op(x)  # the first call builds the tables
-    return _profile(lambda: op(x), f"phase 8d {'fast' if use_fast else 'default'} --quantize op")
 
 
 def phase_native_fast(dev, gen, errs, card):
@@ -2067,15 +1989,13 @@ def phase_native_fast(dev, gen, errs, card):
     launch count set to 0 just before each path and read just after, every
     comparison exact: (a) the 48x48 image on the native n=8192 chain
     through the lazy JPEG op; (b) the lazy kernel at n=16384 on the native
-    chain; (c) the four-step NTT against the NTT kernels; (d) the fast
-    network's --quantize op against the default one; (e) bench.core."""
+    chain; (c) bench.core."""
     import torch
     from fhetpu_torch.bfv import crypto
     from fhetpu_torch.bfv.encoder import FractionalEncoder
     from fhetpu_torch.bfv.evaluator import Evaluator
     from fhetpu_torch.bfv.params import BfvParams
-    from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
-    from fhetpu_torch.core import ntt, ntt4step, ntt_kernel, server_kernel
+    from fhetpu_torch.core import ntt_kernel, server_kernel
     from fhetpu_torch.io import images
     from fhetpu_torch.pipelines.jpeg_encode import server_compute_fn
 
@@ -2166,53 +2086,7 @@ def phase_native_fast(dev, gen, errs, card):
     del x, st, ev
     torch.cuda.empty_cache()
 
-    # (c) the four-step NTT (int8 tensor-core products) against the NTT kernels
-    shapes = []
-    for n in DEGREES:
-        tables = BfvParams.create(n=n).tables_q
-        x = rand_residues((NTT4_BATCH,), tables.primes, n, gen, dev)
-        fx = ntt.ntt(x, tables)
-        check(torch.equal(ntt4step.ntt4(x, tables, True), fx), f"ntt4 forward at n={n}")
-        check(torch.equal(ntt4step.ntt4(fx, tables, False), ntt.intt(fx, tables)),
-              f"ntt4 inverse at n={n}")
-        ft = ntt4step.get_fourstep(tables.primes, n)
-        shapes.append(f"n={n} A*B={ft.A}*{ft.B} L={len(tables.primes)}")
-    del x, fx
-    torch.cuda.empty_cache()
-    print(f"phase 8c: four-step NTT, forward and inverse, bit-equal to the NTT kernels on q, "
-          f"{NTT4_BATCH} polynomials at {'; '.join(shapes)}; forward at n={TIMING_N}, B=64: "
-          f"{_in_fresh_process(ntt4_profile)} [{card}]", flush=True)
-
-    # (d) the fast network's --quantize op against the default one
-    par = BfvParams.create(n=TIMING_N)
-    ev = Evaluator(par, device=dev)
-    quant = build_quant_tables(0)[0][ZIGZAG].astype(np.float64)
-    x = rand_residues((TIMING_NB, 3, 64, 2), par.q_primes, par.n, gen, dev)
-    default = server_compute_fn(ev, apply_quantize=True, quant=quant)
-    fast = server_compute_fn(ev, apply_quantize=True, quant=quant, use_fast=True)
-    want = default(x)
-    reset_launches()
-    got = fast(x)
-    torch.cuda.synchronize()
-    fast_path = read_launches()
-    check(torch.equal(got, want), "fast --quantize op differs from the default one")
-    check(fast_path["ntt_forward"] > 0 and fast_path["ntt_inverse"] > 0
-          and all(fast_path[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy", "dct8x8")),
-          f"fast --quantize op: launches {fast_path}")
-    del want, got
-    torch.cuda.empty_cache()
-    d_ms = time_ms(lambda: default(x), 3)
-    torch.cuda.empty_cache()
-    f_ms = time_ms(lambda: fast(x), 3)
-    del x, ev, default, fast
-    torch.cuda.empty_cache()
-    print(f"phase 8d: --quantize op, n={par.n} nb={TIMING_NB}: use_fast=True bit-equal to the "
-          f"default (torch YCC, DCT-only kernel, torch quantize); launches {fast_path}; default "
-          f"{d_ms:.3f} ms, fast {f_ms:.3f} ms (CUDA events, 3 runs); fast "
-          f"{_in_fresh_process(quantize_op_profile, True)}; default "
-          f"{_in_fresh_process(quantize_op_profile, False)} [{card}]", flush=True)
-
-    # (e) bench.core as its user runs it, under its own timeout
+    # (c) bench.core as its user runs it, under its own timeout
     labels = ("ntt_fwd_kernel", "ntt_inv_kernel", "behz_multiply", "relinearize",
               "linear_plainfract", "harmonics_order16")
     with tempfile.TemporaryDirectory() as d:
@@ -2224,17 +2098,17 @@ def phase_native_fast(dev, gen, errs, card):
             res = json.load(f)
     secs = time.perf_counter() - t0
     check(set(labels) <= set(res["ops"]) and set(res["ntt_sweep"]) == {"16", "64", "256", "1024"}
-          and all(set(r) == {"kernel", "fourstep_int8"} for r in res["ntt_sweep"].values()),
+          and all(set(r) == {"kernel"} for r in res["ntt_sweep"].values()),
           f"bench.core: sections {sorted(res['ops'])}, sweep {res['ntt_sweep']}")
-    print(f"phase 8e: bench.core --only {BENCH_CORE_ONLY} rc 0 in {secs:.1f} s, every section "
+    print(f"phase 8c: bench.core --only {BENCH_CORE_ONLY} rc 0 in {secs:.1f} s, every section "
           f"present; {res['device']}; NTT launches {res['ntt_launches']}", flush=True)
     for B, row in res["ntt_sweep"].items():
-        print(f"phase 8e: ntt_sweep B={B} (n={res['n']}, L={res['L']}): " + "; ".join(
+        print(f"phase 8c: ntt_sweep B={B} (n={res['n']}, L={res['L']}): " + "; ".join(
             f"{col} {v['us_per_call']:.2f} us, {v['ntts_per_s']:.1f} NTTs/s, "
             f"{v['achieved_gb_per_s']:.2f} of {v['peak_gb_per_s']} GB/s" for col, v in row.items()),
             flush=True)
     for label in labels:
-        print(f"phase 8e: {label}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else
+        print(f"phase 8c: {label}: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else
                                                f"{k} {v}" for k, v in res["ops"][label].items()),
               flush=True)
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s (host clock)", flush=True)

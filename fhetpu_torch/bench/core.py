@@ -5,13 +5,11 @@ The counterpart of ``scripts/bench_core.py``, which times fhetpu on a TPU;
 its sections, labels and fields are kept:
 
 * ``ntt_sweep``: the forward NTT over uint32 [B, L, n] at B = 16, 64, 256,
-  1024 (``--sweep``), column ``kernel`` (``csrc/ntt.cu``) and column
-  ``fourstep_int8`` (``core/ntt4step.py``, int8 products on the tensor
-  cores), the four-step first checked bit-equal to the kernel on two rows.
-  Each column has us_per_call, ntts_per_s and achieved_gb_per_s against
-  the 2*4*B*L*n bytes a single-pass transform reads and writes, with the
-  card's 3.35 TB/s beside it.  fhetpu's XLA and dispatcher columns have no
-  counterpart, and the plain torch NTT is not timed: it is no yardstick;
+  1024 (``--sweep``), column ``kernel`` (``csrc/ntt.cu``): us_per_call,
+  ntts_per_s and achieved_gb_per_s against the 2*4*B*L*n bytes a
+  single-pass transform reads and writes, with the card's 3.35 TB/s beside
+  it.  fhetpu's XLA, dispatcher and four-step columns have no counterpart,
+  and the plain torch NTT is not timed: it is no yardstick;
 * ``ops``: ``ntt_fwd_kernel`` and ``ntt_inv_kernel`` at ``--batch``;
   ``behz_multiply`` (2 x 2 -> 3) and ``relinearize`` (3 -> 2, dbc 16) over
   ``--batch`` ciphertexts; ``linear_plainfract`` and ``cubic_plainfract``
@@ -47,7 +45,7 @@ from ..bfv.crypto import Encryptor, KeyGenerator
 from ..bfv.encoder import FractionalEncoder
 from ..bfv.evaluator import Ct, DeviceRelinKeys, Evaluator
 from ..bfv.params import BfvParams
-from ..core import modops, ntt, ntt4step, ntt_kernel
+from ..core import modops, ntt, ntt_kernel
 from ..pipelines import resize as rz
 from ..pipelines import rle_decode as rd
 from .headline import card
@@ -109,13 +107,8 @@ class CoreBench:
         tables = self.par.tables_q
         for B in batches:
             x = self.rand((B,))
-            got = ntt4step.ntt4(x[:2], tables, True)
-            if not torch.equal(got, ntt.ntt(x[:2], tables)):
-                raise RuntimeError(f"four-step NTT differs from the NTT kernel at B={B}")
             self.results["ntt_sweep"][str(B)] = {
                 "kernel": self._ntt_entry(lambda a: ntt.ntt(a, tables), x, f"ntt_kernel_B{B}"),
-                "fourstep_int8": self._ntt_entry(lambda a: ntt4step.ntt4(a, tables, True), x,
-                                                 f"ntt_fourstep_B{B}"),
             }
 
     def ntt_ops(self, wanted):

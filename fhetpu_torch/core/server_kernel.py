@@ -185,18 +185,14 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def shoup_lazy(x, w, ws, p):
-    """x*w - floor(x*ws/2^32)*p in [0, 2p) for any int64 x in [0, 2^32) (the
-    kernels' mulmod_shoup_lazy).  x*ws reaches 2^64, so the quotient is
+def _lazy_mul(x, w, ws, p):
+    """x*w - floor(x*ws/2^32)*p in [0, 2p) for int64 x, checked in [0, 2^32)
+    (the kernels' mulmod_shoup_lazy).  x*ws reaches 2^64, so the quotient is
     taken over x's 16-bit halves: floor((x_hi*ws + floor(x_lo*ws / 2^16)) /
     2^16)."""
+    x = _u32(x)
     q = ((x >> 16) * ws + (((x & 0xFFFF) * ws) >> 16)) >> 16
     return x * w - q * p
-
-
-def _lazy_mul(x, w, ws, p):
-    """``shoup_lazy`` with its input's range checked."""
-    return shoup_lazy(_u32(x), w, ws, p)
 
 
 def _red_to(x, p, from_m: int, to_m: int):

@@ -25,7 +25,6 @@ from ..bfv.evaluator import Ct, Evaluator
 from ..core import modops
 from ..core.dct_kernel import dct8x8_kernel
 from ..core.server_kernel import server_ycc_dct_fused
-from .jpeg_fast import server_ycc_dct_fast
 
 # AAN rotation constants, exactly as multiplied in the reference network
 _C0541 = 0.541196100
@@ -139,7 +138,6 @@ def server_compute_fn(
     quant: Optional[np.ndarray] = None,
     input_ntt: bool = False,
     output_ntt: bool = False,
-    use_fast: Optional[bool] = None,
     fused_lazy: bool = False,
 ):
     """The server op: uint32 [nb, 3, 64, 2, L, n] -> same shape, on the
@@ -149,31 +147,22 @@ def server_compute_fn(
     domain (``ntt`` in the stream meta) or in coefficient form (the
     client's default).
 
-    With quantize off (the reference's default) the op is the forward NTT
-    kernel, the fused YCC+DCT kernel and the inverse NTT kernel -- or their
-    plain versions for a CPU tensor.  fused_lazy selects the lazy-reduction
-    fused kernel (same output bits; ValueError where the primes leave it no
-    headroom, as in fhetpu).
+    Three paths (a CUDA tensor runs the hand-written kernels, a CPU tensor
+    their plain versions):
 
-    With quantize on, the YCC transform and the per-slot quantize multiplies
-    run on the evaluator's torch ops, and the DCT between them on the
-    DCT-only kernel (its plain version for a CPU tensor).
-
-    use_fast (None is False, as in fhetpu) selects fhetpu's lazy-reduction,
-    folded-constant network
-    (``pipelines/jpeg_fast.py``, torch int64 ops) in place of both, with
-    quantize on or off: the same output bits.  It cannot be combined with
-    fused_lazy, which names a kernel.
+    * quantize off, the default (the reference's): the forward NTT
+      kernel, the strict fused YCC+DCT kernel and the inverse NTT kernel;
+    * quantize off with fused_lazy: the lazy-reduction fused kernel in
+      place of the strict one (same output bits; ValueError where the
+      primes leave it no headroom, as in fhetpu);
+    * quantize on: the YCC transform on the evaluator's torch ops, the
+      DCT-only kernel, then the per-slot quantize products on the
+      evaluator.
     """
-    if use_fast and fused_lazy:
-        raise ValueError("use_fast and fused_lazy select different networks")
     ev.server_state()  # build the kernels' tables now, not in the first call
 
     def fn(cts: torch.Tensor) -> torch.Tensor:
         d = ev.transform_to_ntt(Ct(cts, input_ntt)).data  # [nb, 3, 64, 2, L, n]
-        if use_fast:
-            out = server_ycc_dct_fast(ev, d, apply_quantize, quant)
-            return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data
         if not apply_quantize:
             out = server_ycc_dct_fused(ev, d, lazy=fused_lazy)
             return out if output_ntt else ev.transform_from_ntt(Ct(out, True)).data

@@ -1,8 +1,8 @@
 """``python -m fhetpu_torch.bench.core`` (the counterpart of
 ``scripts/bench_core.py``) on the CPU at a tiny size: every section of
-fhetpu's bench_core.json with its fields, the four-step column checked
-against the NTT, ``--only`` merging into the file; and its refusal to run
-without a card unless ``--device cpu`` is given."""
+fhetpu's bench_core.json with its fields (the NTT sweep's kernel column
+only), ``--only`` merging into the file; and its refusal to run without a
+card unless ``--device cpu`` is given."""
 
 import json
 import os
@@ -36,7 +36,7 @@ def test_bench_core_cpu_writes_every_section(tmp_path, monkeypatch, capsys):
     assert (res["n"], res["L"], res["batch"]) == (1024, 1, 2) and "CPU" in res["device"]
     assert set(res["ntt_sweep"]) == {"2", "4"}
     for B, row in res["ntt_sweep"].items():
-        assert set(row) == {"kernel", "fourstep_int8"}
+        assert set(row) == {"kernel"}
         for col in row.values():
             assert set(col) == NTT_FIELDS and col["peak_gb_per_s"] is None
             assert col["ntts_per_s"] == pytest.approx(int(B) * 1e6 / col["us_per_call"])

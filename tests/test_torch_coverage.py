@@ -5,7 +5,9 @@ Every public top-level function and class of every module under
 under ``fhetpu_torch/``: the same name in the mirrored module (the same
 path, with the three Pallas modules mapped to their CUDA wrappers), or an
 entry in ``MOVED`` (the port's name for it, elsewhere or renamed), or an
-entry in ``NOT_PORTED`` (names tied to JAX or the TPU, with the reason).
+entry in ``NOT_PORTED`` (names tied to JAX or the TPU, and fhetpu's
+four-step NTT and fast JPEG network, which lost to the port's kernels on
+the H100; each with the reason).
 Both packages are read with ``ast``; neither is imported.  Nested closures
 are not checked.
 """
@@ -58,6 +60,18 @@ NOT_PORTED = {
     "fhetpu/parallel/mesh.py:block_sharding": "a jax NamedSharding",
     "fhetpu/pipelines/resize.py:make_tile_fn": "jax.jit wrapper of resize_tile",
 }
+FOURSTEP = ("the four-step NTT as int8 digit-plane products: on the H100 a forward call at "
+            "n = 4096, B = 64 took 3.0-4.9 ms (207 launches, host-bound) where the NTT "
+            "kernel takes 20-33 us")
+FAST_NETWORK = ("fhetpu's lazy, constant-folded JPEG network and its lazy-op layer: on the "
+                "H100 its --quantize op took 326-332 ms at n = 4096, nb = 64 where the "
+                "default one (DCT-only kernel) takes 124-126 ms, with the same bits")
+NOT_PORTED.update({f"fhetpu/core/ntt4step.py:{name}": FOURSTEP
+                   for name in ("FourStepTables", "get_fourstep", "ntt4")})
+NOT_PORTED.update({f"fhetpu/core/lazy.py:{name}": FAST_NETWORK
+                   for name in ("Lazy", "LazyOps", "LazyOps.reduce_to", "LazyOps.canon",
+                                "LazyOps.add", "LazyOps.sub", "LazyOps.mul_shoup")})
+NOT_PORTED["fhetpu/pipelines/jpeg_fast.py:server_ycc_dct_fast"] = FAST_NETWORK
 
 
 def _defs(path: pathlib.Path, public_only: bool = True) -> set:

@@ -763,38 +763,6 @@ def test_lazy_kernel_at_native_16384(cuda):
     assert torch.equal(ntt_kernel.ntt_inverse(fx, dt), ntt_kernel.intt_plain(fx, dt))
 
 
-@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384])
-def test_ntt4_on_cuda_equals_ntt_kernels(cuda, n):
-    """The four-step NTT's int8 products on the card (torch._int_mm) give
-    the NTT kernels' bits, forward and inverse, on q."""
-    from fhetpu_torch.core import ntt4step
-
-    tables = BfvParams.create(n=n, t=T).tables_q
-    x = torch.from_numpy(_residues(np.random.default_rng(83), tables.primes, (3,), n)).to(cuda)
-    fx = ntt.ntt(x, tables)
-    assert torch.equal(ntt4step.ntt4(x, tables, True), fx)
-    assert torch.equal(ntt4step.ntt4(fx, tables, False), ntt.intt(fx, tables))
-
-
-def test_fast_quantize_op_on_cuda_equals_default(cuda):
-    """server_compute_fn(use_fast=True) with quantize on a CUDA tensor
-    launches the NTT kernels and no JPEG kernel, and gives the default
-    --quantize op's bits (torch YCC, the DCT-only kernel, torch quantize)."""
-    par = BfvParams.create(n=2048, t=T)
-    ev = Evaluator(par, FractionalEncoder(T, 2048), device=cuda)
-    quant = build_quant_tables(50)[0][ZIGZAG].astype(np.float64)
-    x = torch.from_numpy(_residues(np.random.default_rng(84), par.q_primes, (2, 3, 64, 2),
-                                   2048)).to(cuda)
-    want = server_compute_fn(ev, apply_quantize=True, quant=quant)(x)
-    before = (dct_kernel.dct8x8_kernel.launches,) + _launches()
-    got = server_compute_fn(ev, apply_quantize=True, quant=quant, use_fast=True)(x)
-    torch.cuda.synchronize()
-    after = (dct_kernel.dct8x8_kernel.launches,) + _launches()
-    assert (after[0] - before[0], after[2] - before[2]) == (0, 0)
-    assert after[1] > before[1] and after[3] > before[3]
-    assert torch.equal(got, want)
-
-
 @pytest.mark.parametrize("quantize", [False, True], ids=["default", "quantize"])
 def test_make_server_on_cuda_equals_server_compute_fn(cuda, quantize):
     """make_server on a CUDA tensor launches the NTT kernels and the fused

@@ -139,14 +139,19 @@ def test_ntt_plain_matches_fhetpu_pallas_interpret():
     assert np.array_equal(want_i, x)
 
 
-def test_device_ntt_dispatch_on_cpu():
+@pytest.mark.parametrize("n,base", [(2048, "tables_q"), (4096, "tables_q"),
+                                    (4096, "tables_bsk"), (8192, "tables_q"),
+                                    (16384, "tables_q")])
+def test_device_ntt_dispatch_on_cpu(n, base):
     """core.ntt.ntt/intt on a CPU tensor run the plain version: equal to the
-    host transform, on the Bsk base too, without counting a launch."""
-    rng = np.random.default_rng(3)
-    tables = BfvParams.create(n=4096, t=T).tables_bsk
-    x = _residues(rng, tables.primes, (2, 2), 4096)
+    host transform and undone by the inverse, at every ring degree and on
+    the Bsk base too, without counting a launch."""
+    rng = np.random.default_rng(n)
+    tables = getattr(BfvParams.create(n=n, t=T), base)
+    x = _residues(rng, tables.primes, (2, 2), n)
     before = (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches)
     fx = ntt.ntt(torch.from_numpy(x), tables)
+    assert fx.dtype == torch.uint32 and fx.shape == x.shape
     assert np.array_equal(fx.numpy(), ntt.np_ntt(x, tables))
     assert np.array_equal(ntt.intt(fx, tables).numpy(), x)
     assert (ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches) == before

@@ -42,6 +42,8 @@ RNS_TOOL = ("the port's BEHZ ops take Ct objects and the per-device RnsTool, whi
             "carries the parameters and its tables on the ciphertexts' device")
 NTT_WRAPPER = ("fhetpu's factory returns a jitted transform of the tables; the port's "
                "wrapper transforms x with tables already on its device")
+NO_FAST_NETWORK = ("use_fast selects fhetpu's lazy, constant-folded network, which the port "
+                   "does not keep: it lost to the default op on the H100 with the same bits")
 MEASURE = ("chains a torch callable on the device between CUDA events instead of a "
            "jitted loop of k; target_seconds 0.0 reads TARGET_SECONDS at call time")
 
@@ -96,7 +98,8 @@ SIGNATURE_DIFFS = {
     "fhetpu/pipelines/jpeg_encode.py:make_server": (
         {"drop": ["use_pallas", "use_fused"]}, JAX_SWITCHES),
     "fhetpu/pipelines/jpeg_encode.py:server_compute_fn": (
-        {"drop": ["use_pallas", "pallas_interpret", "use_fused", "fused_chunk"]}, JAX_SWITCHES),
+        {"drop": ["use_pallas", "pallas_interpret", "use_fused", "fused_chunk", "use_fast"]},
+        JAX_SWITCHES + "; " + NO_FAST_NETWORK),
 }
 
 # flags the port's CLIs have and fhetpu's do not, by module

@@ -27,7 +27,7 @@ from fhetpu_torch.bfv import crypto
 from fhetpu_torch.bfv.evaluator import Ct, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
 from fhetpu_torch.convert import server_arrays, server_state_from_numpy
-from fhetpu_torch.core import ntt_kernel, server_kernel
+from fhetpu_torch.core import ntt, ntt_kernel, server_kernel
 from fhetpu_torch.pipelines import jpeg_encode as pipe
 
 torch.set_num_threads(2)
@@ -182,6 +182,28 @@ def test_server_op_matches_fhetpu(fused_ref):
     assert np.array_equal(got_ntt.numpy(), out_ntt)
     assert before == (server_kernel.server_ycc_dct_fused.launches,
                       ntt_kernel.ntt_forward.launches, ntt_kernel.ntt_inverse.launches)
+
+
+@pytest.mark.parametrize("input_ntt,output_ntt", [(True, False), (False, True), (True, True)],
+                         ids=["ntt-in", "ntt-out", "ntt-both"])
+@pytest.mark.parametrize("quantize", [False, True], ids=["plain", "quantize"])
+def test_server_op_domains_agree(fused_ref, quantize, input_ntt, output_ntt):
+    """The server op in any mix of stream forms gives the coefficient-form
+    op's bits: fed np_ntt(x) where input_ntt is set, its output equals the
+    coefficient-form output, put through np_ntt where output_ntt is set;
+    with quantize off (the fused kernel's plain version) and on (torch YCC,
+    the DCT-only kernel's plain version, torch quantize)."""
+    from fhetpu_torch.codec.jpeg import ZIGZAG, build_quant_tables
+
+    _, ev, x_coef, _, _ = fused_ref
+    tq = ev.params.tables_q
+    kw = dict(apply_quantize=quantize, quant=build_quant_tables(50)[0][ZIGZAG].astype(np.float64))
+    want = pipe.server_compute_fn(ev, **kw)(torch.from_numpy(x_coef)).numpy()
+    x = ntt.np_ntt(x_coef, tq) if input_ntt else x_coef
+    got = pipe.server_compute_fn(ev, input_ntt=input_ntt, output_ntt=output_ntt, **kw)(
+        torch.from_numpy(x))
+    assert got.dtype == torch.uint32
+    assert np.array_equal(got.numpy(), ntt.np_ntt(want, tq) if output_ntt else want)
 
 
 def test_evaluator_network_equals_fused_plain(fused_ref):
