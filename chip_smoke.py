@@ -28,7 +28,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      p - 1; one launch and M * n positions counted a call; CUDA-event times
      of both at each shape and per bilinear image (its six launches) beside
      the kernel's bound (72 B a position at L = 4, or its fewest int32
-     operations);
+     operations); then the same for the extension kernel (step 1) against
+     extend_q_to_bsk, at the resize's M = 1734, 2601 and 34 and the other
+     L, per bilinear image its twelve launches beside 40 B a position;
   3c. the harmonic expansion kernel (the decode server's step on the card)
      against its plain torch version (rle_decode.expand_harmonics_plain),
      bit-equal, at the decode cell's shape (H = 25 harmonics, P = 2304
@@ -227,9 +229,10 @@ KERNELS = {
     "server_ycc_dct_lazy": ("fhetpu_torch/csrc/server_ycc_dct.cu",
                             "fhetpu/core/pallas_server.py:191"),
     "dct8x8": ("fhetpu_torch/csrc/dct.cu", "fhetpu/core/pallas_dct.py:161"),
-    # BEHZ steps 3-4, which fhetpu computes as XLA ops, not a TPU kernel
+    # BEHZ steps 3-4 and step 1, which fhetpu computes as XLA ops, not TPU kernels
     "behz_floor_convert": ("fhetpu_torch/csrc/behz_floor_convert.cu",
                            "fhetpu/bfv/rns.py:197"),
+    "behz_extend": ("fhetpu_torch/csrc/behz_extend.cu", "fhetpu/bfv/rns.py:146"),
     # the decode server's expansion, which fhetpu leaves to XLA as a jitted fori_loop
     "harmonic_expand": ("fhetpu_torch/csrc/harmonic_expand.cu",
                         "fhetpu/pipelines/rle_decode.py:384"),
@@ -264,6 +267,7 @@ def resource_usage(lib_path: str) -> list:
             short = re.search(r"(server_ycc_dct_strict_kernel|server_ycc_dct_lazy_kernelILi\d"
                               r"|dct8x8_kernel|ntt_kernelILb\dELi\d+"
                               r"|behz_floor_convert_kernelILi\d+ELi\d"
+                              r"|behz_extend_kernelILi\d+ELi\d"
                               r"|harmonic_expand_kernelILi\d)", found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
@@ -327,6 +331,7 @@ def counters() -> dict:
             "server_ycc_dct_lazy": (server_kernel.server_ycc_dct_fused, "lazy_launches"),
             "dct8x8": (dct_kernel.dct8x8_kernel, "launches"),
             "behz_floor_convert": (behz_kernel.behz_floor_convert, "launches"),
+            "behz_extend": (behz_kernel.behz_extend, "launches"),
             "harmonic_expand": (expand_kernel.harmonic_expand, "launches")}
 
 
@@ -464,71 +469,115 @@ def behz_work(L: int, positions: int) -> tuple:
     return positions * (4 * (L + K) + 8 * L), positions * per
 
 
-def phase_behz(dev, gen, errs, card) -> tuple:
+# The BEHZ extension kernel's shapes, as BEHZ_SHAPES: the resize's operands
+# at n = 4096 (867 ciphertexts x 2 and x 3 components, and the 17 x 2 fract
+# components they meet), then each other L the kernel is built for
+EXTEND_SHAPES = ((4096, False, 1734, 4), (4096, False, 2601, 2), (4096, False, 34, 6),
+                 (2048, False, 4096, 0), (8192, False, 1024, 0), (16384, False, 128, 0),
+                 (16384, True, 128, 0))
+
+
+def extend_work(L: int, positions: int) -> tuple:
+    """(bytes, [FMA, ALU, either] int32 operations) of the extension kernel
+    over ``positions`` (component, coefficient) pairs: 4L bytes read and 4K
+    written a position (40 B at L = 4), and the operations of
+    csrc/behz_extend.cu's graph: L reduced Shoup products (z), L multiply-adds
+    and a mask, compare, subtract and select (r), then per Bsk prime L lazy
+    products added to r's and one reduction."""
+    K = L + 2
+    term = LAZY_MUL + LAZY_ADD + RED  # a lazy product added to a lazy sum
+    per = (L * (LAZY_MUL + RED) + L * np.array([1, 0, 0]) + np.array([0, 2, 2])
+           + K * (LAZY_MUL + L * term + RED))
+    return positions * 4 * (L + K), positions * per
+
+
+def phase_behz(dev, gen, errs, card) -> dict:
     """Phase 3b: the BEHZ floor-convert kernel against the torch steps it
     replaces on the card (t x_q, t x_bsk, scale_floor_to_bsk,
-    convert_bsk_to_q) at BEHZ_SHAPES, on random residues with the last
+    convert_bsk_to_q) at BEHZ_SHAPES, and the extension kernel against
+    extend_q_to_bsk at EXTEND_SHAPES, on random residues with the last
     component at p - 1 in every base: bit-equal, one launch and M * n
     positions a call; CUDA-event times of both beside the kernel's bound.
-    Returns (kernel ms, torch steps ms, bound ms, what bounds it) per
+    Returns each kernel's (kernel ms, torch steps ms, bound ms, what bounds
+    it) per bilinear image."""
+    import torch
+    from fhetpu_torch.core import behz_kernel, modops
+
+    def operands(par, m, n, bases):
+        return [torch.cat([rand_residues((m - 1,), primes, n, gen, dev),
+                           worst_residues((1,), primes, n, dev)])
+                for primes in (par.q_primes, par.bsk_primes)[:bases]]
+
+    def floor_convert_steps(tool, xq, xb):
+        tx_q = modops.mulmod(modops.to_i64(xq), tool.t_mod_q, tool.qp)
+        tx_b = modops.mulmod(modops.to_i64(xb), tool.t_mod_bsk, tool.bp)
+        return tool.convert_bsk_to_q(tool.scale_floor_to_bsk(tx_q, tx_b))
+
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fc, ex = behz_kernel.behz_floor_convert, behz_kernel.behz_extend
+    # kernel -> (label, oracle, shapes, operand bases, work, out dtype, launches
+    # an image, the wrapper's call, the torch steps)
+    kernels = {
+        "behz_floor_convert": ("floor-convert", "the torch steps", BEHZ_SHAPES, 2, behz_work,
+                               torch.int64, 6, lambda tool, *xs: fc(*xs, tool.floor_convert_table),
+                               floor_convert_steps),
+        "behz_extend": ("extension", "extend_q_to_bsk", EXTEND_SHAPES, 1, extend_work,
+                        torch.uint32, 12, lambda tool, x: ex(x, tool.extend_table),
+                        lambda tool, x: tool.extend_q_to_bsk(modops.to_i64(x))),
+    }
+    return {name: _behz_kernel_times(dev, name, spec, operands, errs, card, clock_hz, sms)
+            for name, spec in kernels.items()}
+
+
+def _behz_kernel_times(dev, name, spec, operands, errs, card, clock_hz, sms) -> tuple:
+    """One kernel of phase 3b (``spec`` as in phase_behz) at each of its
+    shapes; (kernel ms, torch steps ms, bound ms, what bounds it) per
     bilinear image."""
     import torch
     from fhetpu_torch.bfv import rns
     from fhetpu_torch.bfv.params import BfvParams
-    from fhetpu_torch.core import behz_kernel, modops
+    from fhetpu_torch.core import behz_kernel
 
-    fc = behz_kernel.behz_floor_convert
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    label, oracle, shapes, bases, work, dtype, launches, kernel, steps = spec
+    wrapper = getattr(behz_kernel, name)
     image_ms, image_bytes, image_ops = np.zeros(2), 0, 0
-    for n, native, m, per_image in BEHZ_SHAPES:
+    for n, native, m, per_image in shapes:
         par = (BfvParams.create_native if native else BfvParams.create)(n=n)
         tool = rns.RnsTool(par, dev)
         L = par.L
-        xq = torch.cat([rand_residues((m - 1,), par.q_primes, n, gen, dev),
-                        worst_residues((1,), par.q_primes, n, dev)])
-        xb = torch.cat([rand_residues((m - 1,), par.bsk_primes, n, gen, dev),
-                        worst_residues((1,), par.bsk_primes, n, dev)])
-
-        def kernel():
-            return fc(xq, xb, tool.floor_convert_table)
-
-        def steps():
-            tx_q = modops.mulmod(modops.to_i64(xq), tool.t_mod_q, tool.qp)
-            tx_b = modops.mulmod(modops.to_i64(xb), tool.t_mod_bsk, tool.bp)
-            return tool.convert_bsk_to_q(tool.scale_floor_to_bsk(tx_q, tx_b))
-
-        before = (fc.launches, fc.positions)
-        got = kernel()
+        xs = operands(par, m, n, bases)
+        before = (wrapper.launches, wrapper.positions)
+        got = kernel(tool, *xs)
         torch.cuda.synchronize()
-        counted = (fc.launches - before[0], fc.positions - before[1])
-        check(counted == (1, m * n), f"BEHZ kernel n={n} L={L} M={m}: counted {counted}")
-        want = steps()
+        counted = (wrapper.launches - before[0], wrapper.positions - before[1])
+        check(counted == (1, m * n), f"BEHZ {label} n={n} L={L} M={m}: counted {counted}")
+        want = steps(tool, *xs)
         e = max_abs_err(got, want)
-        errs["behz_floor_convert"] = max(errs["behz_floor_convert"], e)
-        check(got.dtype == torch.int64 and got.shape == want.shape and e == 0,
-              f"BEHZ kernel vs torch steps at n={n} L={L} M={m}: max abs err {e}")
+        errs[name] = max(errs[name], e)
+        check(got.dtype == dtype and got.shape == want.shape and e == 0,
+              f"BEHZ {label} kernel vs {oracle} at n={n} L={L} M={m}: max abs err {e}")
         del got, want
         torch.cuda.empty_cache()
-        k_ms, s_ms = time_ms(kernel, 20), time_ms(steps, 3)
-        nbytes, ops = behz_work(L, m * n)
+        k_ms, s_ms = time_ms(lambda: kernel(tool, *xs), 20), time_ms(lambda: steps(tool, *xs), 3)
+        nbytes, ops = work(L, m * n)
         t_bytes, t_ops = bound_times(nbytes, ops, sms, clock_hz)
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        print(f"phase 3b: BEHZ floor-convert n={n} L={L}{' native' if native else ''} M={m}, "
-              f"random + 1 at p-1: kernel bit-equal to the torch steps, 1 launch, {m * n} "
+        print(f"phase 3b: BEHZ {label} n={n} L={L}{' native' if native else ''} M={m}, "
+              f"random + 1 at p-1: kernel bit-equal to {oracle}, 1 launch, {m * n} "
               f"positions; kernel {k_ms:.4f} ms, torch steps {s_ms:.3f} ms; bound {b_ms:.4f} ms "
               f"by {b_by} (HBM {t_bytes:.4f} ms, integer {t_ops:.4f} ms; {nbytes / 1e9:.3f} GB, "
               f"{ops.sum() / 1e9:.2f} G int32 ops); {100 * b_ms / k_ms:.1f} % of it reached "
               f"[{card}]", flush=True)
         image_ms += per_image * np.array([k_ms, s_ms])
         image_bytes, image_ops = image_bytes + per_image * nbytes, image_ops + per_image * ops
-        del xq, xb, tool
+        del xs, tool
         torch.cuda.empty_cache()
     t_bytes, t_ops = bound_times(image_bytes, image_ops, sms, clock_hz)
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"phase 3b: BEHZ floor-convert per bilinear 48x48 -> 17x17 image (6 launches): kernel "
-          f"{image_ms[0]:.4f} ms, torch steps {image_ms[1]:.3f} ms; bound {b_ms:.4f} ms by "
-          f"{b_by} ({image_bytes / 1e9:.3f} GB, integer {t_ops:.4f} ms); "
+    print(f"phase 3b: BEHZ {label} per bilinear 48x48 -> 17x17 image ({launches} launches): "
+          f"kernel {image_ms[0]:.4f} ms, torch steps {image_ms[1]:.3f} ms; bound {b_ms:.4f} ms "
+          f"by {b_by} ({image_bytes / 1e9:.3f} GB, integer {t_ops:.4f} ms); "
           f"{100 * b_ms / image_ms[0]:.1f} % of it reached [{card}]", flush=True)
     return image_ms[0], image_ms[1], b_ms, b_by
 
@@ -814,8 +863,7 @@ def phase_resize_paths(dev):
     the client sends at the ring degree its chooser picks, then
     server_resize --device cuda runs each path with every launch count set
     to 0 just before it and read just after; the client decrypts.  Returns
-    the BEHZ floor-convert kernel's launches on the bilinear encrypted-fract
-    path (4d)."""
+    the BEHZ kernels' launches on the bilinear encrypted-fract path (4d)."""
     import torch
     from fhetpu_torch.bfv.encoder import FractionalEncoder
     from fhetpu_torch.cli import client_resize, server_resize
@@ -857,11 +905,14 @@ def phase_resize_paths(dev):
                 check(all(got[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy",
                                                  "dct8x8")),
                       f"{mode_name} {path}: a JPEG kernel launched: {got}")
-                # ct x ct products, one floor-convert launch each, only with encrypted fracts
-                check((got["behz_floor_convert"] > 0) == (path != "plain-fracts"),
-                      f"{mode_name} {path}: BEHZ floor-convert launches {got}")
+                # ct x ct products, only with encrypted fracts: one floor-convert
+                # launch each, and one extension an operand (a square's once)
+                fc, ext = got["behz_floor_convert"], got["behz_extend"]
+                check((fc > 0) == (path != "plain-fracts") and fc <= ext <= 2 * fc
+                      and (mode == rz.BICUBIC or ext == 2 * fc),
+                      f"{mode_name} {path}: BEHZ launches {got}")
                 if behz_launches is None:
-                    behz_launches = got["behz_floor_convert"]
+                    behz_launches = {"behz_floor_convert": fc, "behz_extend": ext}
                 rargs = client_resize.parser().parse_args(["--recieve", "-i", s2c] + common)
                 t0 = time.perf_counter()
                 vals, plains[path] = client_resize.recieve_arrays(rargs, keep_plain=True)
@@ -2304,6 +2355,7 @@ TRACE_KERNELS = {"ntt_forward": r"ntt_kernel<(true|\(bool\)1)|ntt_kernelILb1",
                  "server_ycc_dct_lazy": r"server_ycc_dct_lazy_kernel",
                  "dct8x8": r"dct8x8_kernel",
                  "behz_floor_convert": r"behz_floor_convert_kernel",
+                 "behz_extend": r"behz_extend_kernel",
                  "harmonic_expand": r"harmonic_expand_kernel"}
 
 
@@ -2470,10 +2522,10 @@ def main() -> int:
     expand_times = phase_expand(dev, gen, errs, card)
     with tempfile.TemporaryDirectory() as work:  # phase 4's streams, read again in phase 10
         launches = phase_main_paths(dev, work)
-        launches["behz_floor_convert"] = phase_resize_paths(dev)
+        launches.update(phase_resize_paths(dev))
         launches["harmonic_expand"] = phase_decode_paths(dev, work)
         _, times = phase_timing(dev, gen, errs, card)
-        times["behz_floor_convert"] = behz_times
+        times.update(behz_times)
         times["harmonic_expand"] = expand_times
         phase_resize_timing(dev, gen, card)
         phase_decode_timing(dev, card)

@@ -11,9 +11,10 @@ multiply (the role of SEAL's Evaluator::multiply/square):
      most L units is absorbed by the noise),
   4. exact Shenoy-Kumaresan conversion Bsk -> q through m_sk.
 
-On CUDA tensors steps 3 and 4 run as one kernel
-(``core/behz_kernel.py``) on the inverse NTTs' uint32 outputs; the torch
-steps below serve CPU tensors and are the kernel's oracle.
+On CUDA tensors step 1 runs as one kernel on the operand's uint32 residues,
+and steps 3 and 4 as another on the inverse NTTs' uint32 outputs
+(``core/behz_kernel.py``); the torch steps below serve CPU tensors and are
+the kernels' oracle.
 
 ``BehzConsts`` is fhetpu's table set, built the same way from Python
 big-ints (tests hold the two equal table by table).  The steps are plain
@@ -165,7 +166,13 @@ class RnsTool:
     def floor_convert_table(self) -> behz_kernel.DeviceBehzTable:
         """The floor-convert kernel's table, built at the first multiply on a
         CUDA device; raises where the kernel cannot take the base."""
-        return behz_kernel.DeviceBehzTable.build(self.bc, self.device)
+        return behz_kernel.DeviceBehzTable.build(self.bc, self.device, "floor_convert")
+
+    @functools.cached_property
+    def extend_table(self) -> behz_kernel.DeviceBehzTable:
+        """The extension kernel's table, built at the first multiply on a
+        CUDA device; raises where the kernel cannot take the base."""
+        return behz_kernel.DeviceBehzTable.build(self.bc, self.device, "extend")
 
     def _sum_q_to_bsk(self, z: torch.Tensor) -> torch.Tensor:
         """sum_i z_i * (q/p_i mod b_j) mod b_j: [..., L, n] -> [..., K, n]."""
@@ -230,6 +237,11 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
 
     # 1. extend to Bsk, NTT in both bases
     def prep(ct):
+        if ct.device.type == "cuda":
+            x = modops.to_u32(ct).contiguous()
+            x_b = behz_kernel.behz_extend(x, tool.extend_table)
+            return (modops.to_i64(ntt.ntt(x, tool.tables_q)),
+                    modops.to_i64(ntt.ntt(x_b, tool.tables_bsk)))
         x = modops.to_i64(ct)
         return _ntt(x, tool.tables_q), _ntt(tool.extend_q_to_bsk(x), tool.tables_bsk)
 

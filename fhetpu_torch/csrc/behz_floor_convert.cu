@@ -48,9 +48,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "behz.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 // The table's layout for L q primes (core/behz_kernel.py:table_parts holds
 // the same order): L + K primes, then (w, w_shoup) pairs.
@@ -69,37 +69,6 @@ struct Layout {
   static constexpr int kWords = kPrimeWords + 2 * kPairs;
 };
 
-// r in [0, 2p) -> [0, p)
-__device__ __forceinline__ uint32_t fold(uint32_t r, uint32_t p) { return min(r, r - p); }
-
-// x * w mod p in [0, 2p), for any x < 2^32; w = (w, floor(w 2^32 / p))
-__device__ __forceinline__ uint32_t lazy_mul(uint32_t x, uint2 w, uint32_t p) {
-  return x * w.x - __umulhi(x, w.y) * p;
-}
-
-// acc + x, both in [0, 2p), back in [0, 2p)
-__device__ __forceinline__ uint32_t lazy_add(uint32_t acc, uint32_t x, uint32_t p2) {
-  return fold(acc + x, p2);
-}
-
-// a - b mod p, canonical, for a, b in [0, 2p)
-__device__ __forceinline__ uint32_t lazy_sub(uint32_t a, uint32_t b, uint32_t p) {
-  return fold(fold(a + 2 * p - b, 2 * p), p);
-}
-
-template <int C>
-__device__ __forceinline__ void load(const uint32_t* p, uint32_t (&v)[C]) {
-  if constexpr (C == 4) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (C == 2) {
-    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
 template <int C>
 __device__ __forceinline__ void store(long long* p, const uint32_t (&v)[C]) {
   if constexpr (C == 1) {
@@ -114,14 +83,14 @@ __device__ __forceinline__ void store(long long* p, const uint32_t (&v)[C]) {
 // items = M * n / C; item -> (component m, first coefficient col); a row is
 // n = C << row_shift coefficients
 template <int L, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBehzThreads)
     behz_floor_convert_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ xb,
                               long long* __restrict__ y, long long items, int row_shift,
                               const uint32_t* __restrict__ table) {
   using Lay = Layout<L>;
   constexpr int K = Lay::K, NB = Lay::NB;
   __shared__ __align__(16) uint32_t tab[Lay::kWords];
-  for (int w = threadIdx.x; w < Lay::kWords; w += kThreads) tab[w] = table[w];
+  for (int w = threadIdx.x; w < Lay::kWords; w += kBehzThreads) tab[w] = table[w];
   __syncthreads();
   const uint32_t* qp = tab;
   const uint32_t* bp = tab + L;
@@ -130,8 +99,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long n = static_cast<long long>(C) << row_shift;
   const long long row_mask = (1LL << row_shift) - 1;
 
-  for (long long it = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; it < items;
-       it += static_cast<long long>(gridDim.x) * kThreads) {
+  for (long long it = static_cast<long long>(blockIdx.x) * kBehzThreads + threadIdx.x; it < items;
+       it += static_cast<long long>(gridDim.x) * kBehzThreads) {
     const long long m = it >> row_shift, col = (it & row_mask) * C;
     uint32_t zq[L][C], zb[K][C];
 #pragma unroll
@@ -204,35 +173,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// blocks of the kernel for L q primes resident on the current device at once:
-// SMs x blocks per SM, the persistent grid's size
-template <int L, int C>
-cudaError_t resident_blocks(int* blocks) {
-  int dev, sms, per_sm;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  const auto kern = behz_floor_convert_kernel<L, C>;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0)) !=
-      cudaSuccess)
-    return e;
-  *blocks = sms * per_sm;
-  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
-
 template <int L, int C>
 cudaError_t launch(const uint32_t* xq, const uint32_t* xb, long long* y, long long m, int n,
                    const uint32_t* table, int table_words, int blocks, cudaStream_t stream) {
-  if (table_words != Layout<L>::kWords || n < C || (n & (n - 1)) || blocks < 1)
+  long long items;
+  int row_shift;
+  unsigned grid;
+  if (table_words != Layout<L>::kWords ||
+      !grid_shape<C>(m, n, blocks, &items, &row_shift, &grid))
     return cudaErrorInvalidValue;
-  int row_shift = 0;
-  while ((C << row_shift) < n) ++row_shift;
-  const long long items = m * (n / C);
-  long long grid = (items + kThreads - 1) / kThreads;
-  if (grid > blocks) grid = blocks;
-  behz_floor_convert_kernel<L, C><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      xq, xb, y, items, row_shift, table);
+  behz_floor_convert_kernel<L, C><<<grid, kBehzThreads, 0, stream>>>(xq, xb, y, items,
+                                                                       row_shift, table);
   return cudaGetLastError();
 }
 
@@ -243,11 +194,11 @@ cudaError_t launch(const uint32_t* xq, const uint32_t* xb, long long* y, long lo
 extern "C" int fhetpu_behz_floor_convert_blocks(int L, int* blocks) {
   cudaError_t e;
   switch (L) {
-    case 2: e = resident_blocks<2, 4>(blocks); break;
-    case 4: e = resident_blocks<4, 4>(blocks); break;
-    case 8: e = resident_blocks<8, 2>(blocks); break;
-    case 15: e = resident_blocks<15, 1>(blocks); break;
-    case 16: e = resident_blocks<16, 1>(blocks); break;
+    case 2: e = resident_blocks(behz_floor_convert_kernel<2, 4>, blocks); break;
+    case 4: e = resident_blocks(behz_floor_convert_kernel<4, 4>, blocks); break;
+    case 8: e = resident_blocks(behz_floor_convert_kernel<8, 2>, blocks); break;
+    case 15: e = resident_blocks(behz_floor_convert_kernel<15, 1>, blocks); break;
+    case 16: e = resident_blocks(behz_floor_convert_kernel<16, 1>, blocks); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -303,10 +303,11 @@ def _ntt_launches():
 
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
-    """rns.multiply (sizes 2x2 and 3x2) and relinearize (dbc 0 and 16) on
-    CUDA tensors run the NTT kernels on the q and Bsk bases, and each
-    multiply the floor-convert kernel once, and give the residues of the
-    same ops on the CPU, which the CPU tests hold equal to fhetpu's."""
+    """rns.multiply (sizes 2x2 and 3x2, and a square) and relinearize (dbc 0
+    and 16) on CUDA tensors run the NTT kernels on the q and Bsk bases, each
+    multiply the floor-convert kernel once and the extension kernel once an
+    operand (once for a square), and give the residues of the same ops on
+    the CPU, which the CPU tests hold equal to fhetpu's."""
     par = BfvParams.create(n=n, t=T)
     kg = crypto.KeyGenerator(par, seed=n)
     enc = crypto.Encryptor(par, kg.public_key(), seed=n + 1)
@@ -314,15 +315,19 @@ def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
     a = enc.encrypt_batch(rng.integers(0, T, size=(2, n)))
     b = _residues(rng, par.q_primes, (2, 3), n)
     cpu, gpu = Evaluator(par, device="cpu"), Evaluator(par, device=cuda)
-    for x, y in ((a, a[::-1].copy()), (b, a)):
+    for x, y in ((a, a[::-1].copy()), (b, a), (a, None)):
         before = _ntt_launches()
         floor_convert = behz_kernel.behz_floor_convert.launches
-        got = rns.multiply(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda),
-                           gpu.rns_tool)
+        extend = behz_kernel.behz_extend.launches
+        dx = torch.from_numpy(x).to(cuda)
+        dy = dx if y is None else torch.from_numpy(y).to(cuda)
+        got = rns.multiply(dx, dy, gpu.rns_tool)
         torch.cuda.synchronize()
         assert all(c > p for c, p in zip(_ntt_launches(), before))
         assert behz_kernel.behz_floor_convert.launches == floor_convert + 1
-        want = rns.multiply(torch.from_numpy(x), torch.from_numpy(y), cpu.rns_tool)
+        assert behz_kernel.behz_extend.launches == extend + (1 if y is None else 2)
+        hx = torch.from_numpy(x)
+        want = rns.multiply(hx, hx if y is None else torch.from_numpy(y), cpu.rns_tool)
         assert torch.equal(got.cpu(), want)
     prod = cpu.multiply(Ct(torch.from_numpy(a)), Ct(torch.from_numpy(a[::-1].copy())))
     for dbc in (0, 16):
@@ -447,14 +452,115 @@ def test_floor_convert_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="K = L \\+ 2"):
         behz_kernel.check_limits(par.L, par.L + 3, par.q_primes)
     with pytest.raises(ValueError, match="2\\^30"):
-        behz_kernel.DeviceBehzTable.build(wide_p, cuda)
+        behz_kernel.DeviceBehzTable.build(wide_p, cuda, "floor_convert")
     with pytest.raises(ValueError, match="CUDA devices"):
-        behz_kernel.DeviceBehzTable.build(tool.bc, "cpu")
+        behz_kernel.DeviceBehzTable.build(tool.bc, "cpu", "floor_convert")
     with pytest.raises(ValueError, match="expects"):
         behz_kernel.behz_floor_convert(xq, torch.cat([xb, xb[:, :1]], dim=1), table)
     with pytest.raises(TypeError, match="uint32"):
         behz_kernel.behz_floor_convert(modops.to_i64(xq), xb, table)
     assert behz_kernel.behz_floor_convert.launches == before
+    assert table.blocks >= torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+def _with_r(tool, x, targets):
+    """x (uint32 [m, L, n]) with its first q residue chosen so that the
+    extension's r, before its centring, is ``targets`` ([m])."""
+    bc, mt = tool.bc, tool.bc.m_tilde
+    qp = [int(p) for p in bc.qp.ravel()]
+    a = [int(m) * int(h) % p for m, h, p in zip(bc.m_tilde_mod_q.ravel(),
+                                                bc.qhat_inv_mod_q.ravel(), qp)]
+    rw = [int(v) * bc.neg_q_inv_mod_mtilde % mt for v in bc.q_over_pi_mod_mtilde]
+    x = modops.to_i64(x).clone()
+    rest = sum(x[:, i] * a[i] % qp[i] * rw[i] for i in range(1, bc.L))
+    t = torch.tensor(targets, device=x.device).reshape(-1, 1)
+    z0 = (t - rest) % mt * pow(rw[0], -1, mt) % mt
+    x[:, 0] = z0 * pow(a[0], -1, qp[0]) % qp[0]
+    return x.to(torch.uint32)
+
+
+def _extend_r(tool, x):
+    """The extension's r in [0, m~) before its centring, as
+    extend_q_to_bsk computes it."""
+    mt = tool.bc.m_tilde
+    z = modops.mulmod(modops.mulmod(modops.to_i64(x), tool.m_tilde_mod_q, tool.qp),
+                      tool.qhat_inv_mod_q, tool.qp)
+    ym = ((z & (mt - 1)) * tool.q_over_pi_mod_mtilde).sum(dim=-2) & (mt - 1)
+    return (ym * tool.bc.neg_q_inv_mod_mtilde) & (mt - 1)
+
+
+EXTEND_CASES = ([(4096, False, prefix) for prefix in ((1734,), (2601,), (17, 1, 1, 2))]
+                + [(2048, False, (3, 5)), (8192, False, (3, 5)), (16384, False, (2, 3)),
+                   (16384, True, (2, 3)), (4096, False, "edges"), (16384, True, "edges")])
+
+
+@pytest.mark.parametrize("n,native,prefix", EXTEND_CASES,
+                         ids=[f"{'native' if v else 'seal'}-{n}-"
+                              + (p if isinstance(p, str) else "x".join(map(str, p)))
+                              for n, v, p in EXTEND_CASES])
+def test_extend_kernel_equals_torch_step(cuda, n, native, prefix):
+    """behz_extend gives exactly extend_q_to_bsk on the same CUDA tensor at
+    every L the kernel is built for (2, 4, 8, 15 and 16), at the bilinear
+    resize's shapes (M = 1734 and 2601 components, and the fract operand's
+    [17, 1, 1, 2]) on random residues (r on both sides of m~/2); and
+    ("edges") on 0 and p - 1, and with r at 0, m~/2 - 1, m~/2 and m~ - 1.
+    Each call adds one launch and M * n positions."""
+    par = (BfvParams.create_native if native else BfvParams.create)(n=n, t=T)
+    tool = rns.RnsTool(par, cuda)
+    rng = np.random.default_rng(n + 5 * native)
+    mt = tool.bc.m_tilde
+    if prefix == "edges":
+        qp1 = torch.tensor(par.q_primes, device=cuda).reshape(-1, 1) - 1
+        x = modops.to_i64(torch.from_numpy(_residues(rng, par.q_primes, (7,), n)).to(cuda))
+        x[0], x[1] = 0, qp1
+        x[2, :, 0::2], x[2, :, 1::2] = 0, qp1
+        x = x.to(torch.uint32)
+        x[3:] = _with_r(tool, x[3:], [0, mt // 2 - 1, mt // 2, mt - 1])
+        r = _extend_r(tool, x[3:])
+        assert torch.equal(r, torch.tensor([0, mt // 2 - 1, mt // 2, mt - 1],
+                                           device=cuda).reshape(4, 1).expand(r.shape))
+        prefix = (7,)
+    else:
+        x = torch.from_numpy(_residues(rng, par.q_primes, prefix, n)).to(cuda)
+        r = _extend_r(tool, x)
+        assert (r < mt // 2).any() and (r >= mt // 2).any()
+    before = (behz_kernel.behz_extend.launches, behz_kernel.behz_extend.positions)
+    got = behz_kernel.behz_extend(x, tool.extend_table)
+    torch.cuda.synchronize()
+    assert (behz_kernel.behz_extend.launches - before[0],
+            behz_kernel.behz_extend.positions - before[1]) == (1, int(np.prod(prefix)) * n)
+    want = tool.extend_q_to_bsk(modops.to_i64(x))
+    assert got.dtype == torch.uint32 and got.shape == prefix + (par.L + 2, n)
+    assert torch.equal(modops.to_i64(got), want)
+
+
+def test_extend_kernel_refuses_what_it_cannot_take(cuda):
+    """The extension kernel raises on int64, non-contiguous, misaligned and
+    CPU inputs, on another L than its table's, and on a table for the CPU or
+    for an L it is not built for.  Nothing launches and nothing falls back
+    to the torch step."""
+    par = BfvParams.create(n=2048, t=T)
+    tool = rns.RnsTool(par, cuda)
+    table = tool.extend_table
+    x = torch.from_numpy(_residues(np.random.default_rng(10), par.q_primes, (4,), par.n)).to(cuda)
+    shifted = torch.empty(x.numel() + 1, dtype=torch.uint32, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    before = behz_kernel.behz_extend.launches
+    with pytest.raises(TypeError, match="uint32"):
+        behz_kernel.behz_extend(modops.to_i64(x), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        behz_kernel.behz_extend(x.transpose(0, 1), table)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        behz_kernel.behz_extend(shifted, table)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        behz_kernel.behz_extend(x.cpu(), table)
+    with pytest.raises(ValueError, match="expects"):
+        behz_kernel.behz_extend(x[:, :1].contiguous(), table)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        behz_kernel.DeviceBehzTable.build(tool.bc, "cpu", "extend")
+    with pytest.raises(ValueError, match="L in"):
+        rns.RnsTool(BfvParams.create(n=1024, t=T), cuda).extend_table
+    assert behz_kernel.behz_extend.launches == before
     assert table.blocks >= torch.cuda.get_device_properties(cuda).multi_processor_count
 
 

@@ -280,6 +280,21 @@ def _emulate_floor_convert(words, L, xq, xb):
 CHAINS = [(n, False) for n in (2048, 4096, 8192, 16384)] + [(n, True) for n in (2048, 4096, 8192, 16384)]
 
 
+def _check_packed(bc, words, parts):
+    """The packed words: the q and Bsk primes, then every constant below its
+    modulus beside its exact Shoup companion, in ``parts``' order."""
+    assert words.dtype == np.uint32
+    assert words[:bc.L + bc.K].tolist() == [int(p) for p in np.r_[bc.qp.ravel(), bc.bskp.ravel()]]
+    pairs = words[bc.L + bc.K:].reshape(-1, 2).astype(object)
+    at = 0
+    for name, w, p in parts:
+        assert w.shape == p.shape and (w >= 0).all() and (w < p).all(), name
+        for (wi, si), x, q in zip(pairs[at:at + w.size], w.reshape(-1), p.reshape(-1)):
+            assert wi == x and si == (int(x) << 32) // int(q), name
+        at += w.size
+    assert at == len(pairs)
+
+
 @pytest.mark.parametrize("n,native", CHAINS, ids=[f"{'native' if v else 'seal'}-{n}" for n, v in CHAINS])
 def test_floor_convert_kernel_tables(n, native):
     """The BEHZ floor-convert kernel's host table for the chooser's chains:
@@ -293,16 +308,9 @@ def test_floor_convert_kernel_tables(n, native):
     bc = rns.get_behz(par)
     assert par.L in behz_kernel.KERNEL_L and bc.K == par.L + 2
     behz_kernel.check_limits(bc.L, bc.K, tuple(par.q_primes) + par.bsk_primes)
-    words = behz_kernel.pack_table(bc)
-    assert words.dtype == np.uint32
-    pairs = words[bc.L + bc.K:].reshape(-1, 2).astype(object)
-    at = 0
-    for name, w, p in behz_kernel.table_parts(bc):
-        assert w.shape == p.shape and (w >= 0).all() and (w < p).all(), name
-        for (wi, si), x, q in zip(pairs[at:at + w.size], w.reshape(-1), p.reshape(-1)):
-            assert wi == x and si == (int(x) << 32) // int(q), name
-        at += w.size
-    assert at == len(pairs)
+    parts = behz_kernel.table_parts(bc)
+    words = behz_kernel.pack_table(bc, parts)
+    _check_packed(bc, words, parts)
     # inputs: random, all 0, all p - 1, and a random row of each
     rng = np.random.default_rng(n + native)
     qp = np.asarray(par.q_primes, dtype=np.uint64).reshape(1, -1, 1)
@@ -320,3 +328,81 @@ def test_floor_convert_kernel_tables(n, native):
     assert np.array_equal(got.astype(np.int64), want.numpy())
     half = par.m_sk // 2
     assert (alpha < half).any() and (alpha >= half).any()
+
+
+_MT = np.uint64(1 << 16)
+
+
+def _emulate_extend(words, L, x):
+    """csrc/behz_extend.cu's arithmetic, word for word, on uint64 arrays
+    holding 32-bit values: reads the packed table at the kernel's offsets
+    (ExtendLayout).  Returns the Bsk residues and r before its centring."""
+    K = L + 2
+    words = words.astype(np.uint64)
+    qp, bp = words[:L], words[L:L + K]
+    pr = words[L + K:].reshape(-1, 2)
+    kA, kV = 0, L
+    kQM = kV + L * K
+    kNQM = kQM + K
+    kR = kNQM + K
+    assert len(pr) == kR + L
+    z = [_fold(_lazy_mul(x[:, i], pr[kA + i], qp[i]), qp[i]) for i in range(L)]
+    r = np.zeros_like(x[:, 0])
+    for i in range(L):
+        r = (r + z[i] * pr[kR + i][0]) & _M32
+    r &= _MT - np.uint64(1)
+    neg = r >= _MT // np.uint64(2)
+    ra = np.where(neg, _MT - r, r)
+    out = []
+    for k in range(K):
+        w = np.where(neg, pr[kNQM + k][0], pr[kQM + k][0])
+        ws = np.where(neg, pr[kNQM + k][1], pr[kQM + k][1])
+        acc = _lazy_mul(ra, (w, ws), bp[k])
+        for i in range(L):
+            acc = _fold(acc + _lazy_mul(z[i], pr[kV + i * K + k], bp[k]), 2 * bp[k])
+        out.append(_fold(acc, bp[k]))
+    return np.stack(out, axis=1), r
+
+
+def _with_r(bc, x, targets):
+    """x with its first q residue chosen so that the extension's r (before
+    centring) is ``targets`` ([m], the same at every coefficient)."""
+    L, mt = bc.L, bc.m_tilde
+    qp, qhat_inv = [int(p) for p in bc.qp.ravel()], [int(v) for v in bc.qhat_inv_mod_q.ravel()]
+    a = [int(m) * h % p for m, h, p in zip(bc.m_tilde_mod_q.ravel(), qhat_inv, qp)]
+    rw = [int(v) * bc.neg_q_inv_mod_mtilde % mt for v in bc.q_over_pi_mod_mtilde]
+    z = [x[:, i].astype(object) * a[i] % qp[i] for i in range(L)]
+    rest = sum(z[i] * rw[i] for i in range(1, L))
+    z0 = (np.asarray(targets, dtype=object)[:, None] - rest) * pow(rw[0], -1, mt) % mt
+    x = x.copy()
+    x[:, 0] = (z0 * pow(a[0], -1, qp[0]) % qp[0]).astype(np.uint64)
+    return x
+
+
+@pytest.mark.parametrize("n,native", CHAINS, ids=[f"{'native' if v else 'seal'}-{n}" for n, v in CHAINS])
+def test_extend_kernel_tables(n, native):
+    """The BEHZ extension kernel's host table for the chooser's chains:
+    every folded constant below its modulus with its exact Shoup companion,
+    the packed words at the kernel's size; and the kernel's arithmetic,
+    emulated on the packed words, gives extend_q_to_bsk exactly on random
+    residues, on 0 and p - 1, and with r at 0, m~/2 - 1, m~/2 and m~ - 1 (the
+    first q residue chosen), so on both sides of its centring."""
+    par = (BfvParams.create_native if native else BfvParams.create)(n=n, t=T)
+    bc = rns.get_behz(par)
+    behz_kernel.check_limits(bc.L, bc.K, tuple(par.q_primes) + par.bsk_primes)
+    parts = behz_kernel.extend_parts(bc)
+    words = behz_kernel.pack_table(bc, parts)
+    _check_packed(bc, words, parts)
+    rng = np.random.default_rng(n + 2 * native)
+    qp = np.asarray(par.q_primes, dtype=np.uint64).reshape(1, -1, 1)
+    m, cols = 7, 256
+    x = rng.integers(0, 1 << 62, size=(m, par.L, cols), dtype=np.uint64) % qp
+    x[1] = 0
+    x[2] = (qp - 1)[0]
+    x[3:] = _with_r(bc, x[3:], [0, bc.m_tilde // 2 - 1, bc.m_tilde // 2, bc.m_tilde - 1])
+    want = rns.RnsTool(par, "cpu").extend_q_to_bsk(torch.from_numpy(x.astype(np.int64)))
+    got, r = _emulate_extend(words, par.L, x)
+    assert np.array_equal(got.astype(np.int64), want.numpy())
+    assert (r[3:].T == np.array([0, 2**15 - 1, 2**15, 2**16 - 1], dtype=np.uint64)).all()
+    half = np.uint64(bc.m_tilde // 2)
+    assert (r[0] < half).any() and (r[0] >= half).any()
