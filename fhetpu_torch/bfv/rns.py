@@ -32,6 +32,7 @@ goes through ``core.ntt`` (the CUDA kernels on a card) on ``tables_q`` and
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -232,8 +233,14 @@ class RnsTool:
 def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tensor:
     """Full BEHZ multiply of coefficient-form ciphertexts (uint32 or int64)
     [..., k1, L, n] x [..., k2, L, n] -> int64 [..., k1+k2-1, L, n]; the
-    batch axes broadcast."""
+    batch axes broadcast.  Counts its calls and the (component,
+    coefficient) positions of its operands and of its product."""
     k1, k2 = ct1.shape[-3], ct2.shape[-3]
+    n = ct1.shape[-1]
+    multiply.calls += 1
+    multiply.positions_in += (ct1.numel() + (0 if ct2 is ct1 else ct2.numel())) // ct1.shape[-2]
+    multiply.positions_out += (math.prod(torch.broadcast_shapes(ct1.shape[:-3], ct2.shape[:-3]))
+                               * (k1 + k2 - 1) * n)
 
     # 1. extend to Bsk, NTT in both bases
     def prep(ct):
@@ -275,3 +282,8 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
         scaled_bsk = tool.scale_floor_to_bsk(tx_q, tx_b)
     # 4. back to q
     return tool.convert_bsk_to_q(scaled_bsk)
+
+
+multiply.calls = 0  # calls
+multiply.positions_in = 0  # the operands' positions as passed, a squared one once
+multiply.positions_out = 0  # the broadcast batch x (k1 + k2 - 1) x n a call

@@ -162,28 +162,29 @@ def linear_interp(ev, A, B, fr, plain: bool, relin=None):
 
 
 def cubic_interp(ev, A, B, C, D, fr, plain: bool, relin=None):
-    three = ev.encode(3.0)
-    a = ev.sub(ev.multiply_plain(B, three), A)
-    a = ev.sub(a, ev.multiply_plain(C, three))
-    a = ev.add(a, D)
-    b = ev.sub(
-        ev.multiply_plain(A, ev.encode(2.0)), ev.multiply_plain(B, ev.encode(5.0))
-    )
-    b = ev.add(b, ev.multiply_plain(C, ev.encode(4.0)))
-    b = ev.sub(b, D)
-    c = ev.sub(C, A)
-    d = B
-    if plain:
-        at3 = ev.multiply_plain(a, fr.t3)
-        bt2 = ev.multiply_plain(b, fr.t2)
-        ct1 = ev.multiply_plain(c, fr.t)
-    else:
-        at3 = _maybe_relin(ev, ev.multiply(a, fr.t3), relin)
-        bt2 = _maybe_relin(ev, ev.multiply(b, fr.t2), relin)
-        ct1 = _maybe_relin(ev, ev.multiply(c, fr.t), relin)
-    s = ev.add(ev.add(at3, bt2), ct1)
-    s = ev.multiply_plain(s, ev.encode(0.5))
-    return ev.add(s, d)
+    with span("pipelines.resize.cubic_interp"):
+        three = ev.encode(3.0)
+        a = ev.sub(ev.multiply_plain(B, three), A)
+        a = ev.sub(a, ev.multiply_plain(C, three))
+        a = ev.add(a, D)
+        b = ev.sub(
+            ev.multiply_plain(A, ev.encode(2.0)), ev.multiply_plain(B, ev.encode(5.0))
+        )
+        b = ev.add(b, ev.multiply_plain(C, ev.encode(4.0)))
+        b = ev.sub(b, D)
+        c = ev.sub(C, A)
+        d = B
+        if plain:
+            at3 = ev.multiply_plain(a, fr.t3)
+            bt2 = ev.multiply_plain(b, fr.t2)
+            ct1 = ev.multiply_plain(c, fr.t)
+        else:
+            at3 = _maybe_relin(ev, ev.multiply(a, fr.t3), relin)
+            bt2 = _maybe_relin(ev, ev.multiply(b, fr.t2), relin)
+            ct1 = _maybe_relin(ev, ev.multiply(c, fr.t), relin)
+        s = ev.add(ev.add(at3, bt2), ct1)
+        s = ev.multiply_plain(s, ev.encode(0.5))
+        return ev.add(s, d)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 no-op with no profiler on; under ``torch.profiler`` the resize tile (4x4 ->
 3x3 at n=2048) and the harmonic decode server's step (6 positions, degree
 2, n=2048) emit the spans PERF.md lists, nested as it lists them, and give
-the same residues as without the profiler."""
+the same residues as without the profiler; the bicubic step opens its span
+once a call, and ``rns.multiply`` counts its products' positions."""
 
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from fhetpu_torch import trace
-from fhetpu_torch.bfv import crypto
+from fhetpu_torch.bfv import crypto, rns
 from fhetpu_torch.bfv.encoder import FractionalEncoder
 from fhetpu_torch.bfv.evaluator import Ct, Evaluator
 from fhetpu_torch.bfv.params import BfvParams
@@ -31,10 +33,11 @@ ENCRYPTED = {TILE: None, "pipelines.resize.gather": TILE, MULTIPLY: TILE,
 PLAIN = {TILE: None, "pipelines.resize.gather": TILE, "bfv.evaluator.transform": TILE,
          "bfv.evaluator.multiply_plain": TILE, "bfv.evaluator.linear": TILE}
 EXPAND, TABLES = "pipelines.rle_decode.expand", "pipelines.rle_decode.weight_tables"
+CUBIC = "pipelines.resize.cubic_interp"
 PROGRAM = {"pipelines.resize.resize_tile", "pipelines.resize.gather",
            "bfv.evaluator.transform", "bfv.evaluator.multiply_plain", "bfv.evaluator.linear",
            "bfv.evaluator.multiply", "bfv.rns.extend", "bfv.rns.tensor",
-           "bfv.rns.scale_floor", "bfv.rns.convert", EXPAND, TABLES}
+           "bfv.rns.scale_floor", "bfv.rns.convert", EXPAND, TABLES, CUBIC}
 
 
 def _spans(prof):
@@ -164,3 +167,34 @@ def test_the_decode_step_keeps_its_residues(decode):
     assert not off.ntt_form and off.data.dtype == torch.uint32
     assert off.data.shape == (P, size, L, n)
     assert torch.equal(off.data, on.data) and torch.equal(off.data, server.data)
+
+
+def test_the_cubic_step_opens_its_span_and_multiply_counts_positions():
+    """One Catmull-Rom step of size-5 operands [1, 2, 1] against fract
+    ciphertexts [2, 1, 1] of sizes 2, 3, 4 (random residues, n=2048), as
+    the bicubic column pass runs it: one span around its three products,
+    5x4, 5x3 and 5x2; each product counts its operands' (component,
+    coefficient) positions as passed and its broadcast output's, and a
+    square counts its operand once."""
+    n = 2048
+    par = BfvParams.create(n=n, t=1 << 14)
+    ev = Evaluator(par, FractionalEncoder(par.t, n), device="cpu")
+    gen = torch.Generator().manual_seed(65)
+
+    def ct(batch, size):
+        return Ct(torch.randint(0, 1 << 26, batch + (size, par.L, n), generator=gen))
+
+    px = [ct((1, 2, 1), 5) for _ in range(4)]
+    fr = SimpleNamespace(t=ct((2, 1, 1), 2), t2=ct((2, 1, 1), 3), t3=ct((2, 1, 1), 4))
+    fn = rns.multiply
+    before = (fn.calls, fn.positions_in, fn.positions_out)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = rz.cubic_interp(ev, *px, fr, False)
+    ev.square(fr.t3)
+    counted = tuple(c - b for c, b in zip((fn.calls, fn.positions_in, fn.positions_out), before))
+    assert out.size == 8 and tuple(out.data.shape[:3]) == (2, 2, 1)
+    got = _spans(prof)
+    assert got[(CUBIC, None)] == 1 and got[(MULTIPLY, CUBIC)] == 3
+    pairs = ((5, 4), (5, 3), (5, 2))
+    assert counted == (4, sum(2 * k1 * n + 2 * k2 * n for k1, k2 in pairs) + 2 * 4 * n,
+                       sum(4 * (k1 + k2 - 1) * n for k1, k2 in pairs) + 2 * 7 * n)
