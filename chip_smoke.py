@@ -31,6 +31,18 @@ Phases, each printed on its own line; any failure exits non-zero:
      operations); then the same for the extension kernel (step 1) against
      extend_q_to_bsk, at the resize's M = 1734, 2601 and 34 and the other
      L, per bilinear image its twelve launches beside 40 B a position;
+  3d. the BEHZ tensor kernel (step 2 on the card) against the torch loop it
+     replaces (rns.tensor_product, int64 on the card), bit-equal, at every
+     product of a bilinear image (n = 4096, L = 4: 2x2, 2x3, 3x2 with their
+     broadcast fract operands) and of a bicubic image (n = 8192, L = 8: 2x4,
+     2x3, 2x2 and 5x4, 5x3, 5x2 at tiles of 4 and 1 rows), on random
+     residues with one batch entry of each operand at p - 1, and at L = 2,
+     15 and 16, a square and 9 x 2 (past its register path); one launch and
+     the broadcast batch x (k1 + k2 - 1) x n positions counted a call;
+     CUDA-event times of both at each product and per bilinear (6 products)
+     and bicubic (75) image, beside the kernel's bound: 4 (L + K) bytes a
+     position, the operands' positions read once and the product's written
+     once;
   3c. the harmonic expansion kernel (the decode server's step on the card)
      against its plain torch version (rle_decode.expand_harmonics_plain),
      bit-equal, at the decode cell's shape (H = 25 harmonics, P = 2304
@@ -229,10 +241,11 @@ KERNELS = {
     "server_ycc_dct_lazy": ("fhetpu_torch/csrc/server_ycc_dct.cu",
                             "fhetpu/core/pallas_server.py:191"),
     "dct8x8": ("fhetpu_torch/csrc/dct.cu", "fhetpu/core/pallas_dct.py:161"),
-    # BEHZ steps 3-4 and step 1, which fhetpu computes as XLA ops, not TPU kernels
+    # BEHZ steps 3-4, 1 and 2, which fhetpu computes as XLA ops, not TPU kernels
     "behz_floor_convert": ("fhetpu_torch/csrc/behz_floor_convert.cu",
                            "fhetpu/bfv/rns.py:197"),
     "behz_extend": ("fhetpu_torch/csrc/behz_extend.cu", "fhetpu/bfv/rns.py:146"),
+    "behz_tensor": ("fhetpu_torch/csrc/behz_tensor.cu", "fhetpu/bfv/rns.py:279"),
     # the decode server's expansion, which fhetpu leaves to XLA as a jitted fori_loop
     "harmonic_expand": ("fhetpu_torch/csrc/harmonic_expand.cu",
                         "fhetpu/pipelines/rle_decode.py:384"),
@@ -268,6 +281,7 @@ def resource_usage(lib_path: str) -> list:
                               r"|dct8x8_kernel|ntt_kernelILb\dELi\d+"
                               r"|behz_floor_convert_kernelILi\d+ELi\d"
                               r"|behz_extend_kernelILi\d+ELi\d"
+                              r"|behz_tensor_kernelILi\d+ELi\dELi\d"
                               r"|harmonic_expand_kernelILi\d)", found.group(1))
             name = short.group(1) if short else found.group(1)
         elif name and "REG:" in line:
@@ -332,6 +346,7 @@ def counters() -> dict:
             "dct8x8": (dct_kernel.dct8x8_kernel, "launches"),
             "behz_floor_convert": (behz_kernel.behz_floor_convert, "launches"),
             "behz_extend": (behz_kernel.behz_extend, "launches"),
+            "behz_tensor": (behz_kernel.behz_tensor, "launches"),
             "harmonic_expand": (expand_kernel.harmonic_expand, "launches")}
 
 
@@ -580,6 +595,112 @@ def _behz_kernel_times(dev, name, spec, operands, errs, card, clock_hz, sms) -> 
           f"by {b_by} ({image_bytes / 1e9:.3f} GB, integer {t_ops:.4f} ms); "
           f"{100 * b_ms / image_ms[0]:.1f} % of it reached [{card}]", flush=True)
     return image_ms[0], image_ms[1], b_ms, b_by
+
+
+# The BEHZ tensor kernel's products, (n, k1, k2, a's batch, b's batch,
+# products an image): a bilinear 48x48 -> 17x17 image at n = 4096 (one tile:
+# the grid by the column fracts 1 - t and t, twice each, then the columns'
+# 3-component results by the row fracts), then a bicubic image at n = 8192
+# (tiles of 4, 4, 4, 4 and 1 rows; in each, four Catmull-Rom steps along the
+# columns multiply size-2 a, b, c by t^3, t^2, t, and one along the rows
+# size-5 a, b, c by the rows' t^3, t^2, t)
+BILINEAR_PRODUCTS = ((4096, 2, 2, (1, 17, 1), (17, 17, 3), 2),
+                     (4096, 2, 2, (17, 17, 3), (1, 17, 1), 2),
+                     (4096, 2, 3, (17, 1, 1), (17, 17, 3), 1),
+                     (4096, 3, 2, (17, 17, 3), (17, 1, 1), 1))
+BICUBIC_PRODUCTS = tuple(
+    (8192, k1, k2, (rows, 17, 3), fract, count)
+    for rows, tiles in ((4, 4), (1, 1))
+    for k1, k2, fract, count in ((2, 4, (1, 17, 1), 4 * tiles), (2, 3, (1, 17, 1), 4 * tiles),
+                                 (2, 2, (1, 17, 1), 4 * tiles), (5, 4, (rows, 1, 1), tiles),
+                                 (5, 3, (rows, 1, 1), tiles), (5, 2, (rows, 1, 1), tiles)))
+# checked only: the other L (native n = 16384 for L = 16), a square (b None)
+# and sizes past the register path
+TENSOR_CHECKS = ((2048, False, 2, 2, (3, 5), (5,)), (16384, False, 3, 2, (2,), (1,)),
+                 (16384, True, 2, 2, (2, 1), (3,)), (4096, False, 3, 3, (5,), None),
+                 (4096, False, 9, 2, (3,), (1,)))
+
+
+def phase_tensor(dev, gen, errs, card) -> tuple:
+    """Phase 3d: the BEHZ tensor kernel against the torch loop it replaces on
+    the card (rns.tensor_product) at BILINEAR_PRODUCTS, BICUBIC_PRODUCTS and
+    TENSOR_CHECKS, on random residues with the first batch entry of each
+    operand at p - 1: bit-equal, one launch and the broadcast batch x
+    (k1 + k2 - 1) x n positions a call; CUDA-event times of both at each
+    product beside the kernel's byte bound, then per image.  Returns (kernel
+    ms, torch loop ms, bound ms, "bytes") per bilinear image."""
+    import torch
+    from fhetpu_torch.bfv import rns
+    from fhetpu_torch.bfv.params import BfvParams
+    from fhetpu_torch.core import behz_kernel, modops
+
+    fn = behz_kernel.behz_tensor
+    tools = {}
+
+    def operand(par, batch, k):
+        out = []
+        for primes in (par.q_primes, par.bsk_primes):
+            x = rand_residues(tuple(batch) + (k,), primes, par.n, gen, dev)
+            x.view((-1,) + x.shape[-3:])[0] = worst_residues((k,), primes, par.n, dev)
+            out.append(x)
+        return out
+
+    def run(n, native, k1, k2, a_batch, b_batch, timed):
+        par = (BfvParams.create_native if native else BfvParams.create)(n=n)
+        if (n, native) not in tools:
+            tools[n, native] = rns.RnsTool(par, dev)
+        tool = tools[n, native]
+        a = operand(par, a_batch, k1)
+        b = a if b_batch is None else operand(par, b_batch, k2)
+        before = (fn.launches, fn.positions)
+        got = fn(*a, *b, tool.tensor_table)
+        torch.cuda.synchronize()
+        bshape = torch.broadcast_shapes(a[0].shape[:-3], b[0].shape[:-3])
+        kout = k1 + k2 - 1
+        out_positions = int(np.prod(bshape)) * kout * n
+        counted = (fn.launches - before[0], fn.positions - before[1])
+        what = f"BEHZ tensor n={n} L={par.L} {k1}x{k2} {tuple(a_batch)} x {b_batch}"
+        check(counted == (1, out_positions), f"{what}: counted {counted}")
+        wide = [modops.to_i64(x) for x in a + b]
+        want = rns.tensor_product(*wide, tool)
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        errs["behz_tensor"] = max(errs["behz_tensor"], e)
+        check(all(g.dtype == torch.uint32 and g.shape == w.shape for g, w in zip(got, want))
+              and e == 0, f"{what}: kernel vs the torch loop, max abs err {e}")
+        del got, want
+        line = f"phase 3d: {what}, random + 1 entry at p-1: kernel bit-equal to the torch loop"
+        if not timed:
+            print(line, flush=True)
+            return None
+        k_ms = time_ms(lambda: fn(*a, *b, tool.tensor_table), 20)
+        s_ms = time_ms(lambda: rns.tensor_product(*wide, tool), 3)
+        read = (int(np.prod(a_batch)) * k1 + (0 if b_batch is None else
+                                              int(np.prod(b_batch)) * k2)) * n
+        nbytes = 4 * (par.L + par.L + 2) * (read + out_positions)
+        b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"{line}; kernel {k_ms:.4f} ms, torch loop {s_ms:.3f} ms; bound {b_ms:.4f} ms by "
+              f"bytes ({nbytes / 1e9:.4f} GB); {100 * b_ms / k_ms:.1f} % of it reached [{card}]",
+              flush=True)
+        del a, b, wide
+        torch.cuda.empty_cache()
+        return np.array([k_ms, s_ms, b_ms])
+
+    for n, native, k1, k2, a_batch, b_batch in TENSOR_CHECKS:
+        run(n, native, k1, k2, a_batch, b_batch, False)
+    per_image = {}
+    for label, products in (("bilinear", BILINEAR_PRODUCTS), ("bicubic", BICUBIC_PRODUCTS)):
+        total = np.zeros(3)
+        for n, k1, k2, a_batch, b_batch, count in products:
+            total += count * run(n, False, k1, k2, a_batch, b_batch, True)
+        count = sum(p[-1] for p in products)
+        print(f"phase 3d: BEHZ tensor per {label} 48x48 -> 17x17 image ({count} launches): "
+              f"kernel {total[0]:.4f} ms, torch loop {total[1]:.3f} ms; bound {total[2]:.4f} ms "
+              f"by bytes; {100 * total[2] / total[0]:.1f} % of it reached [{card}]", flush=True)
+        per_image[label] = total
+    tools.clear()
+    torch.cuda.empty_cache()
+    k_ms, s_ms, b_ms = per_image["bilinear"]
+    return k_ms, s_ms, b_ms, "bytes"
 
 
 def phase_expand(dev, gen, errs, card) -> tuple:
@@ -905,14 +1026,17 @@ def phase_resize_paths(dev):
                 check(all(got[k] == 0 for k in ("server_ycc_dct", "server_ycc_dct_lazy",
                                                  "dct8x8")),
                       f"{mode_name} {path}: a JPEG kernel launched: {got}")
-                # ct x ct products, only with encrypted fracts: one floor-convert
-                # launch each, and one extension an operand (a square's once)
-                fc, ext = got["behz_floor_convert"], got["behz_extend"]
+                # ct x ct products, only with encrypted fracts: one tensor and one
+                # floor-convert launch each, and one extension an operand (a
+                # square's once)
+                fc, ext, ten = (got[k] for k in ("behz_floor_convert", "behz_extend",
+                                                 "behz_tensor"))
                 check((fc > 0) == (path != "plain-fracts") and fc <= ext <= 2 * fc
-                      and (mode == rz.BICUBIC or ext == 2 * fc),
+                      and ten == fc and (mode == rz.BICUBIC or ext == 2 * fc),
                       f"{mode_name} {path}: BEHZ launches {got}")
                 if behz_launches is None:
-                    behz_launches = {"behz_floor_convert": fc, "behz_extend": ext}
+                    behz_launches = {"behz_floor_convert": fc, "behz_extend": ext,
+                                     "behz_tensor": ten}
                 rargs = client_resize.parser().parse_args(["--recieve", "-i", s2c] + common)
                 t0 = time.perf_counter()
                 vals, plains[path] = client_resize.recieve_arrays(rargs, keep_plain=True)
@@ -2356,6 +2480,7 @@ TRACE_KERNELS = {"ntt_forward": r"ntt_kernel<(true|\(bool\)1)|ntt_kernelILb1",
                  "dct8x8": r"dct8x8_kernel",
                  "behz_floor_convert": r"behz_floor_convert_kernel",
                  "behz_extend": r"behz_extend_kernel",
+                 "behz_tensor": r"behz_tensor_kernel",
                  "harmonic_expand": r"harmonic_expand_kernel"}
 
 
@@ -2519,6 +2644,7 @@ def main() -> int:
     phase_ntt(dev, gen, errs)
     phase_server(dev, gen, errs)
     behz_times = phase_behz(dev, gen, errs, card)
+    behz_times["behz_tensor"] = phase_tensor(dev, gen, errs, card)
     expand_times = phase_expand(dev, gen, errs, card)
     with tempfile.TemporaryDirectory() as work:  # phase 4's streams, read again in phase 10
         launches = phase_main_paths(dev, work)

@@ -12,9 +12,9 @@ multiply (the role of SEAL's Evaluator::multiply/square):
   4. exact Shenoy-Kumaresan conversion Bsk -> q through m_sk.
 
 On CUDA tensors step 1 runs as one kernel on the operand's uint32 residues,
-and steps 3 and 4 as another on the inverse NTTs' uint32 outputs
-(``core/behz_kernel.py``); the torch steps below serve CPU tensors and are
-the kernels' oracle.
+step 2 as another on the forward NTTs' uint32 outputs, and steps 3 and 4 as
+a third on the inverse NTTs' uint32 outputs (``core/behz_kernel.py``); the
+torch steps below serve CPU tensors and are the kernels' oracle.
 
 ``BehzConsts`` is fhetpu's table set, built the same way from Python
 big-ints (tests hold the two equal table by table).  The steps are plain
@@ -129,7 +129,8 @@ def _ntt(x: torch.Tensor, tables) -> torch.Tensor:
 
 
 def _intt(x: torch.Tensor, tables) -> torch.Tensor:
-    """Inverse NTT of int64 residues [..., L, n] -> uint32 (kernel on CUDA)."""
+    """Inverse NTT of int64 or uint32 residues [..., L, n] -> uint32 (kernel
+    on CUDA); a contiguous uint32 input goes in as it is."""
     return ntt.intt(modops.to_u32(x).contiguous(), tables)
 
 
@@ -168,6 +169,12 @@ class RnsTool:
         """The floor-convert kernel's table, built at the first multiply on a
         CUDA device; raises where the kernel cannot take the base."""
         return behz_kernel.DeviceBehzTable.build(self.bc, self.device, "floor_convert")
+
+    @functools.cached_property
+    def tensor_table(self) -> behz_kernel.DeviceBehzTable:
+        """The tensor kernel's table, built at the first multiply on a CUDA
+        device; raises where the kernel cannot take the base."""
+        return behz_kernel.DeviceBehzTable.build(self.bc, self.device, "tensor")
 
     @functools.cached_property
     def extend_table(self) -> behz_kernel.DeviceBehzTable:
@@ -230,6 +237,27 @@ class RnsTool:
             return (xq - alpha[..., None, :] * self.b_mod_q) % self.qp
 
 
+def tensor_product(a_q, a_b, b_q, b_b, tool: RnsTool) -> tuple:
+    """Step 2 in torch int64: the NTT-domain tensor product of operands
+    ``[..., k1, L, n]`` and ``[..., k1, K, n]`` (``a_q``, ``a_b``) and ``b``
+    likewise with k2 components, canonical residues, batch axes
+    broadcasting -> int64 ``[..., k1 + k2 - 1, L, n]`` and ``[..., K, n]``.
+    The CPU path of ``multiply``, and the oracle of the tensor kernel."""
+    k1, k2 = a_q.shape[-3], b_q.shape[-3]
+    out_q, out_b = [], []
+    for r in range(k1 + k2 - 1):
+        acc_q = acc_b = None
+        for i in range(max(0, r - k2 + 1), min(k1, r + 1)):
+            j = r - i
+            tq = modops.mulmod(a_q[..., i, :, :], b_q[..., j, :, :], tool.qp)
+            tb = modops.mulmod(a_b[..., i, :, :], b_b[..., j, :, :], tool.bp)
+            acc_q = tq if acc_q is None else acc_q + tq
+            acc_b = tb if acc_b is None else acc_b + tb
+        out_q.append(acc_q % tool.qp)
+        out_b.append(acc_b % tool.bp)
+    return torch.stack(out_q, dim=-3), torch.stack(out_b, dim=-3)
+
+
 def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tensor:
     """Full BEHZ multiply of coefficient-form ciphertexts (uint32 or int64)
     [..., k1, L, n] x [..., k2, L, n] -> int64 [..., k1+k2-1, L, n]; the
@@ -242,13 +270,12 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
     multiply.positions_out += (math.prod(torch.broadcast_shapes(ct1.shape[:-3], ct2.shape[:-3]))
                                * (k1 + k2 - 1) * n)
 
-    # 1. extend to Bsk, NTT in both bases
+    # 1. extend to Bsk, NTT in both bases (uint32 on CUDA, int64 on the CPU)
     def prep(ct):
         if ct.device.type == "cuda":
             x = modops.to_u32(ct).contiguous()
             x_b = behz_kernel.behz_extend(x, tool.extend_table)
-            return (modops.to_i64(ntt.ntt(x, tool.tables_q)),
-                    modops.to_i64(ntt.ntt(x_b, tool.tables_bsk)))
+            return ntt.ntt(x, tool.tables_q), ntt.ntt(x_b, tool.tables_bsk)
         x = modops.to_i64(ct)
         return _ntt(x, tool.tables_q), _ntt(tool.extend_q_to_bsk(x), tool.tables_bsk)
 
@@ -257,20 +284,13 @@ def multiply(ct1: torch.Tensor, ct2: torch.Tensor, tool: RnsTool) -> torch.Tenso
         b_q, b_b = (a_q, a_b) if ct2 is ct1 else prep(ct2)
     # 2. tensor product (sizes k1+k2-1)
     with span("bfv.rns.tensor"):
-        out_q, out_b = [], []
-        for r in range(k1 + k2 - 1):
-            acc_q = acc_b = None
-            for i in range(max(0, r - k2 + 1), min(k1, r + 1)):
-                j = r - i
-                tq = modops.mulmod(a_q[..., i, :, :], b_q[..., j, :, :], tool.qp)
-                tb = modops.mulmod(a_b[..., i, :, :], b_b[..., j, :, :], tool.bp)
-                acc_q = tq if acc_q is None else acc_q + tq
-                acc_b = tb if acc_b is None else acc_b + tb
-            out_q.append(acc_q % tool.qp)
-            out_b.append(acc_b % tool.bp)
+        if a_q.device.type == "cuda":
+            out_q, out_b = behz_kernel.behz_tensor(a_q, a_b, b_q, b_b, tool.tensor_table)
+        else:
+            out_q, out_b = tensor_product(a_q, a_b, b_q, b_b, tool)
         del a_q, a_b, b_q, b_b
-        prod_q = _intt(torch.stack(out_q, dim=-3), tool.tables_q)
-        prod_b = _intt(torch.stack(out_b, dim=-3), tool.tables_bsk)
+        prod_q = _intt(out_q, tool.tables_q)
+        prod_b = _intt(out_b, tool.tables_bsk)
         del out_q, out_b
     # 3. multiply by t, fast-floor by q (in Bsk); on CUDA 4. too
     with span("bfv.rns.scale_floor"):

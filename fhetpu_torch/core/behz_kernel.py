@@ -1,30 +1,39 @@
-"""BEHZ's two CUDA kernels, their host tables and wrappers.
+"""BEHZ's three CUDA kernels, their host tables and wrappers.
 
 ``behz_extend(x, table)`` (``csrc/behz_extend.cu``) takes a ciphertext's
 uint32 residues ``[..., L, n]`` on q and returns uint32 ``[..., K, n]`` on
 Bsk: the residues that ``RnsTool.extend_q_to_bsk`` returns (step 1 of the
-multiply).  ``behz_floor_convert(prod_q, prod_b, table)``
-(``csrc/behz_floor_convert.cu``) takes the inverse NTTs' uint32 outputs of
-a BEHZ tensor product, ``[..., L, n]`` on q and ``[..., K, n]`` on Bsk, and
-returns int64 ``[..., L, n]``: the residues that
+multiply).  ``behz_tensor(a_q, a_b, b_q, b_b, table)``
+(``csrc/behz_tensor.cu``) takes two operands' forward NTTs, uint32
+``[..., k, L, n]`` on q and ``[..., k, K, n]`` on Bsk, batch axes
+broadcasting, and returns their NTT-domain tensor product on each base,
+uint32 ``[..., k1 + k2 - 1, L, n]`` and ``[..., k1 + k2 - 1, K, n]``: what
+``rns.tensor_product`` returns (step 2).
+``behz_floor_convert(prod_q, prod_b, table)`` (``csrc/behz_floor_convert.cu``)
+takes the inverse NTTs' uint32 outputs of a BEHZ tensor product,
+``[..., L, n]`` on q and ``[..., K, n]`` on Bsk, and returns int64
+``[..., L, n]``: the residues that
 ``RnsTool.convert_bsk_to_q(RnsTool.scale_floor_to_bsk(t x_q, t x_bsk))``
 returns (steps 3 and 4).  The torch steps (``bfv/rns.py``) stay the CPU path
-and the kernels' oracle.  Both run only on CUDA tensors and count their
+and the kernels' oracle.  All three run only on CUDA tensors and count their
 launches (``launches``) and the (component, coefficient) positions they
-covered (``positions``).
+wrote (``positions``).
 
-The kernels multiply only by table constants, each with its Shoup
-companion.  ``extend_parts`` and ``table_parts`` derive them from
-``BehzConsts``, with the constants that meet folded together, in the order
-``ExtendLayout`` and ``Layout`` in the sources read them; ``pack_table``
-lays them out as a kernel's words.  ``DeviceBehzTable.build`` checks a base
-against the kernels' limits and sizes a kernel's persistent grid once per
-device; the wrappers check only dtype, shape, alignment and device.
+The extension and floor-convert kernels multiply only by table constants,
+each with its Shoup companion.  ``extend_parts`` and ``table_parts`` derive
+them from ``BehzConsts``, with the constants that meet folded together, in
+the order ``ExtendLayout`` and ``Layout`` in the sources read them;
+``pack_table`` lays them out as a kernel's words.  The tensor kernel's
+table, ``tensor_words``, holds the primes and their Barrett constants.
+``DeviceBehzTable.build`` checks a base against the kernels' limits and
+sizes a kernel's persistent grid once per device; the wrappers check dtype,
+shape, alignment and device, and the tensor kernel's its sums' bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +44,7 @@ from .modops import shoup
 
 KERNEL_L = (2, 4, 8, 15, 16)  # the chooser's chains at n = 2048..16384, SEAL and native
 PRIME_LIMIT = 1 << 30  # lazy sums reach 4p < 2^32
+TENSOR_MAX_DIMS = 6  # csrc/behz_tensor.cu:kMaxDims, broadcast batch axes after merging
 
 
 def _ints(a) -> list:
@@ -105,20 +115,39 @@ def pack_table(bc, parts) -> np.ndarray:
     return np.array(_ints(bc.qp) + _ints(bc.bskp) + pairs.tolist(), dtype=np.uint32)
 
 
-def check_limits(L: int, K: int, primes):
+def tensor_words(bc) -> np.ndarray:
+    """The tensor kernel's uint32 words: the q primes, the Bsk primes, then
+    each prime's Barrett constant floor(2^64 / p) as two words, low first."""
+    primes = _ints(bc.qp) + _ints(bc.bskp)
+    mus = [(1 << 64) // p for p in primes]
+    return np.array(primes + [w for m in mus for w in (m & 0xFFFFFFFF, m >> 32)],
+                    dtype=np.uint32)
+
+
+def check_limits(L: int, K: int, primes, terms: int = 0):
     """Raise ValueError where the kernels cannot take this base: an L they
-    are not built for, K other than L + 2, or a prime of 2^30 or more."""
+    are not built for, K other than L + 2, or a prime of 2^30 or more; and
+    where the tensor kernel's sums of ``terms`` exact products, each at most
+    (p - 1)^2, could reach 2^64 (at p < 2^30, more than 16 terms)."""
     if L not in KERNEL_L or K != L + 2:
         raise ValueError(f"BEHZ kernels take L in {KERNEL_L} q primes and K = L + 2 Bsk "
                          f"primes, not L = {L}, K = {K}")
     if max(primes) >= PRIME_LIMIT:
         raise ValueError(f"BEHZ kernels need every prime < 2^30 (lazy sums reach 4p < 2^32); "
                          f"got {max(primes)}")
+    if terms * (max(primes) - 1) ** 2 >= 1 << 64:
+        raise ValueError(f"BEHZ tensor kernel sums {terms} products of residues below "
+                         f"{max(primes)} in 64 bits: they could overflow")
 
 
-# kernel -> (its constants, the entry point that sizes its persistent grid)
-_TABLES = {"floor_convert": (table_parts, "fhetpu_behz_floor_convert_blocks"),
-           "extend": (extend_parts, "fhetpu_behz_extend_blocks")}
+def _packed(parts):
+    return lambda bc: pack_table(bc, parts(bc))
+
+
+# kernel -> (its table's words, the entry point that sizes its persistent grid)
+_TABLES = {"floor_convert": (_packed(table_parts), "fhetpu_behz_floor_convert_blocks"),
+           "extend": (_packed(extend_parts), "fhetpu_behz_extend_blocks"),
+           "tensor": (tensor_words, "fhetpu_behz_tensor_blocks")}
 
 
 @dataclass(frozen=True)
@@ -128,16 +157,18 @@ class DeviceBehzTable:
 
     L: int
     K: int
-    words: torch.Tensor  # uint32, pack_table's words
+    words: torch.Tensor  # uint32, the kernel's table
     blocks: int  # the kernel's blocks resident on the device at once
+    primes: tuple  # the q primes, then the Bsk primes
 
     @staticmethod
     def build(bc, device, kernel: str) -> "DeviceBehzTable":
         """Check the base against the kernels' limits (``check_limits``) and
-        upload ``kernel``'s table ("floor_convert" or "extend"); raises
-        where the kernel cannot take the base."""
-        parts, blocks_entry = _TABLES[kernel]
-        check_limits(bc.L, bc.K, _ints(bc.qp) + _ints(bc.bskp))
+        upload ``kernel``'s table ("floor_convert", "extend" or "tensor");
+        raises where the kernel cannot take the base."""
+        words, blocks_entry = _TABLES[kernel]
+        primes = tuple(_ints(bc.qp) + _ints(bc.bskp))
+        check_limits(bc.L, bc.K, primes)
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"BEHZ kernels run on CUDA devices, not {device}")
@@ -146,8 +177,8 @@ class DeviceBehzTable:
         blocks = ctypes.c_int()
         with torch.cuda.device(device):
             build.check(fn(bc.L, ctypes.byref(blocks)), blocks_entry)
-        return DeviceBehzTable(L=bc.L, K=bc.K, words=torch.from_numpy(
-            pack_table(bc, parts(bc))).to(device), blocks=blocks.value)
+        return DeviceBehzTable(L=bc.L, K=bc.K, words=torch.from_numpy(words(bc)).to(device),
+                               blocks=blocks.value, primes=primes)
 
 
 def _check_input(kernel: str, name: str, x: torch.Tensor):
@@ -202,6 +233,96 @@ def behz_extend(x: torch.Tensor, table: DeviceBehzTable) -> torch.Tensor:
 
 behz_extend.launches = 0  # kernel launches
 behz_extend.positions = 0  # (component, coefficient) pairs, M * n a launch
+
+
+def tensor_plan(a_batch, b_batch) -> tuple:
+    """The tensor kernel's view of two operands' batch shapes:
+    ``(bshape, sizes, a_strides, b_strides)``.  ``bshape`` is the broadcast
+    batch shape; ``sizes`` its axes innermost first, with axes of size 1
+    left out and each axis merged into the one inside it where both
+    operands step through the pair as through one axis; the strides count
+    each operand's own batch entries (contiguous), 0 along an axis it is
+    broadcast over."""
+    bshape = tuple(torch.broadcast_shapes(tuple(a_batch), tuple(b_batch)))
+
+    def strides(shape):
+        shape = (1,) * (len(bshape) - len(shape)) + tuple(shape)
+        out, step = [], 1
+        for size in reversed(shape):
+            out.append(step if size > 1 else 0)
+            step *= size
+        return out[::-1]
+
+    full_a, full_b = strides(a_batch), strides(b_batch)
+    sizes, sa, sb = [], [], []
+    for d in reversed(range(len(bshape))):
+        if bshape[d] == 1:
+            continue
+        if sizes and sa[-1] * sizes[-1] == full_a[d] and sb[-1] * sizes[-1] == full_b[d]:
+            sizes[-1] *= bshape[d]
+        else:
+            sizes.append(bshape[d])
+            sa.append(full_a[d])
+            sb.append(full_b[d])
+    return bshape, sizes, sa, sb
+
+
+_TENSOR_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p])
+
+
+def behz_tensor(a_q: torch.Tensor, a_b: torch.Tensor, b_q: torch.Tensor, b_b: torch.Tensor,
+                table: DeviceBehzTable) -> tuple:
+    """Step 2 of BEHZ on CUDA: the NTT-domain tensor product of canonical
+    uint32 operands ``a [..., k1, L, n]`` (``a_q``) and ``[..., k1, K, n]``
+    (``a_b``) and ``b`` likewise with k2 components, batch axes
+    broadcasting -> uint32 ``[*bshape, k1 + k2 - 1, L, n]`` and
+    ``[*bshape, k1 + k2 - 1, K, n]``, exactly ``rns.tensor_product``'s
+    residues; ``table`` is ``DeviceBehzTable.build(bc, device, "tensor")``.
+    Passing b as a (the same tensors) reads it once."""
+    L, K = table.L, table.K
+    for name, x in (("a_q", a_q), ("a_b", a_b), ("b_q", b_q), ("b_b", b_b)):
+        _check_input("tensor", name, x)
+    n = a_q.shape[-1]
+    for xq, xb in ((a_q, a_b), (b_q, b_b)):
+        if (xq.dim() < 3 or tuple(xq.shape[-2:]) != (L, n)
+                or tuple(xb.shape) != tuple(xq.shape[:-2]) + (K, n)):
+            raise ValueError(f"BEHZ tensor kernel expects [..., k, {L}, {n}] and "
+                             f"[..., k, {K}, {n}], got {tuple(xq.shape)} and {tuple(xb.shape)}")
+    if any(x.device != a_q.device for x in (a_b, b_q, b_b, table.words)):
+        raise ValueError(f"table on {table.words.device}, data on "
+                         f"{[str(x.device) for x in (a_q, a_b, b_q, b_b)]}")
+    k1, k2 = a_q.shape[-3], b_q.shape[-3]
+    check_limits(L, K, table.primes, min(k1, k2))
+    bshape, sizes, sa, sb = tensor_plan(a_q.shape[:-3], b_q.shape[:-3])
+    if len(sizes) > TENSOR_MAX_DIMS:
+        raise ValueError(f"BEHZ tensor kernel takes at most {TENSOR_MAX_DIMS} broadcast batch "
+                         f"axes once merged, got {len(sizes)}")
+    kout = k1 + k2 - 1
+    out_q = torch.empty(bshape + (kout, L, n), dtype=torch.uint32, device=a_q.device)
+    out_b = torch.empty(bshape + (kout, K, n), dtype=torch.uint32, device=a_q.device)
+    batch = math.prod(bshape)
+    if batch == 0:
+        return out_q, out_b
+    if batch * (L + K) >= 1 << 31:
+        raise ValueError(f"BEHZ tensor kernel takes fewer than 2^31 (batch, prime) rows, "
+                         f"got {batch} x {L + K}")
+    square = a_q is b_q and a_b is b_b
+    dims = len(sizes)
+    _launch("fhetpu_behz_tensor", _TENSOR_ARGTYPES, a_q.device, a_q.data_ptr(), a_b.data_ptr(),
+            b_q.data_ptr(), b_b.data_ptr(), out_q.data_ptr(), out_b.data_ptr(), k1, k2,
+            int(square), dims, (ctypes.c_int * dims)(*sizes), (ctypes.c_longlong * dims)(*sa),
+            (ctypes.c_longlong * dims)(*sb), L, K, n, table.words.data_ptr(),
+            table.words.numel(), table.blocks)
+    behz_tensor.launches += 1
+    behz_tensor.positions += batch * kout * n
+    return out_q, out_b
+
+
+behz_tensor.launches = 0  # kernel launches
+behz_tensor.positions = 0  # the broadcast batch x (k1 + k2 - 1) x n a launch
 
 
 _FLOOR_CONVERT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

@@ -1,5 +1,5 @@
-// The lazy uint32 arithmetic and the persistent grid of the BEHZ kernels
-// (behz_extend.cu, behz_floor_convert.cu).
+// The lazy uint32 arithmetic, row loads and stores and the persistent grid
+// of the BEHZ kernels (behz_extend.cu, behz_tensor.cu, behz_floor_convert.cu).
 //
 // Every multiplier is a table constant w beside its Shoup companion
 // floor(w 2^32 / p), packed as a uint2: one __umulhi and two multiplies give
@@ -44,6 +44,18 @@ __device__ __forceinline__ void load(const uint32_t* p, uint32_t (&v)[C]) {
     v[0] = t.x, v[1] = t.y;
   } else {
     v[0] = __ldg(p);
+  }
+}
+
+// C consecutive residues of one row: one 16-, 8- or 4-byte store
+template <int C>
+__device__ __forceinline__ void store(uint32_t* p, const uint32_t (&v)[C]) {
+  if constexpr (C == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
   }
 }
 

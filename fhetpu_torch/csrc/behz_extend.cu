@@ -63,17 +63,6 @@ struct ExtendLayout {
 
 constexpr uint32_t kMTilde = 1u << 16;
 
-template <int C>
-__device__ __forceinline__ void store(uint32_t* p, const uint32_t (&v)[C]) {
-  if constexpr (C == 4) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (C == 2) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
 // items = M * n / C; item -> (component m, first coefficient col); a row is
 // n = C << row_shift coefficients
 template <int L, int C>

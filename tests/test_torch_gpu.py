@@ -303,9 +303,11 @@ def _ntt_launches():
 
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
-    """rns.multiply (sizes 2x2 and 3x2, and a square) and relinearize (dbc 0
-    and 16) on CUDA tensors run the NTT kernels on the q and Bsk bases, each
-    multiply the floor-convert kernel once and the extension kernel once an
+    """rns.multiply (sizes 2x2, 3x2 and 2x3 with a broadcast batch, and a
+    square) and relinearize (dbc 0 and 16) on CUDA tensors run the NTT
+    kernels on the q and Bsk bases, each multiply the tensor and
+    floor-convert kernels once (tensor launches as many as multiply's calls,
+    its positions multiply's positions_out) and the extension kernel once an
     operand (once for a square), and give the residues of the same ops on
     the CPU, which the CPU tests hold equal to fhetpu's."""
     par = BfvParams.create(n=n, t=T)
@@ -315,10 +317,12 @@ def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
     a = enc.encrypt_batch(rng.integers(0, T, size=(2, n)))
     b = _residues(rng, par.q_primes, (2, 3), n)
     cpu, gpu = Evaluator(par, device="cpu"), Evaluator(par, device=cuda)
-    for x, y in ((a, a[::-1].copy()), (b, a), (a, None)):
+    for x, y in ((a, a[::-1].copy()), (b, a), (a[:1], b), (a, None)):
         before = _ntt_launches()
         floor_convert = behz_kernel.behz_floor_convert.launches
         extend = behz_kernel.behz_extend.launches
+        tensor = (behz_kernel.behz_tensor.launches, behz_kernel.behz_tensor.positions)
+        calls = (rns.multiply.calls, rns.multiply.positions_out)
         dx = torch.from_numpy(x).to(cuda)
         dy = dx if y is None else torch.from_numpy(y).to(cuda)
         got = rns.multiply(dx, dy, gpu.rns_tool)
@@ -326,6 +330,10 @@ def test_behz_multiply_and_relinearize_on_cuda_equal_cpu(cuda, n):
         assert all(c > p for c, p in zip(_ntt_launches(), before))
         assert behz_kernel.behz_floor_convert.launches == floor_convert + 1
         assert behz_kernel.behz_extend.launches == extend + (1 if y is None else 2)
+        assert rns.multiply.calls - calls[0] == behz_kernel.behz_tensor.launches - tensor[0] == 1
+        out_positions = int(np.prod(got.shape[:-3])) * got.shape[-3] * n
+        assert (rns.multiply.positions_out - calls[1]
+                == behz_kernel.behz_tensor.positions - tensor[1] == out_positions)
         hx = torch.from_numpy(x)
         want = rns.multiply(hx, hx if y is None else torch.from_numpy(y), cpu.rns_tool)
         assert torch.equal(got.cpu(), want)
@@ -561,6 +569,105 @@ def test_extend_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="L in"):
         rns.RnsTool(BfvParams.create(n=1024, t=T), cuda).extend_table
     assert behz_kernel.behz_extend.launches == before
+    assert table.blocks >= torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+def _ntt_operand(rng, par, batch, k, edges=False):
+    """Random canonical residues [*batch, k, L, n] on q and [*batch, k, K,
+    n] on Bsk as uint32 CUDA tensors, or with edges every residue at p - 1."""
+    out = []
+    for primes in (par.q_primes, par.bsk_primes):
+        x = _residues(rng, primes, tuple(batch) + (k,), par.n)
+        if edges:
+            x[...] = (np.asarray(primes, dtype=np.uint32) - 1).reshape(-1, 1)
+        out.append(torch.from_numpy(x).to("cuda"))
+    return out
+
+
+# (n, native chain, k1, k2, a's batch, b's batch, inputs): the bilinear
+# resize's three products at L = 4, the bicubic's at L = 8, the other L,
+# squares, edges at p - 1, and sizes past the kernel's register path (9 x 2)
+TENSOR_CASES = [
+    (4096, False, 2, 2, (1, 17, 1), (17, 17, 3), "random"),
+    (4096, False, 2, 3, (17, 1, 1), (17, 17, 3), "random"),
+    (4096, False, 3, 2, (17, 17, 3), (17, 1, 1), "random"),
+    (4096, False, 2, 2, (5,), None, "square"),
+    (4096, False, 3, 2, (2, 3), (3,), "edges"),
+    (4096, False, 9, 2, (3,), (1,), "random"),
+    (8192, False, 2, 4, (4, 17, 3), (1, 17, 1), "random"),
+    (8192, False, 5, 4, (4, 17, 3), (4, 1, 1), "random"),
+    (8192, False, 5, 2, (4, 17, 3), (4, 1, 1), "edges"),
+    (8192, False, 3, 3, (2,), None, "square"),
+    (2048, False, 2, 2, (3, 5), (5,), "random"),
+    (2048, False, 2, 10, (2, 1), (1, 3), "random"),
+    (16384, False, 2, 3, (2,), (2,), "random"),
+    (16384, False, 3, 3, (2,), None, "square"),
+    (16384, True, 2, 2, (2, 1), (3,), "edges"),
+]
+
+
+@pytest.mark.parametrize("n,native,k1,k2,a_batch,b_batch,inputs", TENSOR_CASES,
+                         ids=[f"{'native' if v else 'seal'}-{n}-{k1}x{k2}-{i}"
+                              for n, v, k1, k2, _, _, i in TENSOR_CASES])
+def test_tensor_kernel_equals_torch_loop(cuda, n, native, k1, k2, a_batch, b_batch, inputs):
+    """behz_tensor gives exactly the torch loop (rns.tensor_product, int64 on
+    the same card) on both bases at every L the kernel is built for (2, 4,
+    8, 15 and 16): at the resize's products with their broadcast fract
+    operands, on squares (the operand passed twice, read once), on residues
+    at p - 1, and past the register path (9 x 2, 2 x 10).  Each call adds
+    one launch and the broadcast batch x (k1 + k2 - 1) x n positions."""
+    par = (BfvParams.create_native if native else BfvParams.create)(n=n, t=T)
+    tool = rns.RnsTool(par, cuda)
+    rng = np.random.default_rng(n + k1 * 10 + k2)
+    a = _ntt_operand(rng, par, a_batch, k1, inputs == "edges")
+    b = a if b_batch is None else _ntt_operand(rng, par, b_batch, k2, inputs == "edges")
+    before = (behz_kernel.behz_tensor.launches, behz_kernel.behz_tensor.positions)
+    got = behz_kernel.behz_tensor(*a, *b, tool.tensor_table)
+    torch.cuda.synchronize()
+    bshape = torch.broadcast_shapes(a[0].shape[:-3], b[0].shape[:-3])
+    kout = k1 + k2 - 1
+    assert (behz_kernel.behz_tensor.launches - before[0],
+            behz_kernel.behz_tensor.positions - before[1]) == (1, int(np.prod(bshape)) * kout * n)
+    want = rns.tensor_product(*(modops.to_i64(x) for x in a + b), tool)
+    for g, w, rows in zip(got, want, (par.L, par.L + 2)):
+        assert g.dtype == torch.uint32 and g.shape == bshape + (kout, rows, n)
+        assert torch.equal(modops.to_i64(g), w)
+
+
+def test_tensor_kernel_refuses_what_it_cannot_take(cuda):
+    """The tensor kernel raises on int64, non-contiguous, misaligned and CPU
+    inputs, on a Bsk operand of another K or another batch than its q
+    operand, on batches that do not broadcast, on sums of 17 products
+    (which could pass 2^64), and on a table for the CPU.  Nothing launches
+    and nothing falls back to the torch loop."""
+    par = BfvParams.create(n=2048, t=T)
+    tool = rns.RnsTool(par, cuda)
+    table = tool.tensor_table
+    rng = np.random.default_rng(11)
+    aq, ab = _ntt_operand(rng, par, (4,), 2)
+    shifted = torch.empty(aq.numel() + 1, dtype=torch.uint32, device=cuda)[1:].view(aq.shape)
+    shifted.copy_(aq)
+    big = _ntt_operand(rng, par, (1,), 17)
+    before = behz_kernel.behz_tensor.launches
+    with pytest.raises(TypeError, match="uint32"):
+        behz_kernel.behz_tensor(modops.to_i64(aq), ab, aq, ab, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        behz_kernel.behz_tensor(aq, ab, aq.transpose(0, 1), ab, table)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        behz_kernel.behz_tensor(aq, ab, shifted, ab, table)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        behz_kernel.behz_tensor(aq, ab, aq.cpu(), ab, table)
+    with pytest.raises(ValueError, match="expects"):
+        behz_kernel.behz_tensor(aq, ab[..., :1, :].contiguous(), aq, ab, table)
+    with pytest.raises(ValueError, match="expects"):
+        behz_kernel.behz_tensor(aq, ab[:2].contiguous(), aq, ab, table)
+    with pytest.raises(RuntimeError):
+        behz_kernel.behz_tensor(aq, ab, aq[:3].contiguous(), ab[:3].contiguous(), table)
+    with pytest.raises(ValueError, match="overflow"):
+        behz_kernel.behz_tensor(*big, *big, table)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        behz_kernel.DeviceBehzTable.build(tool.bc, "cpu", "tensor")
+    assert behz_kernel.behz_tensor.launches == before
     assert table.blocks >= torch.cuda.get_device_properties(cuda).multi_processor_count
 
 

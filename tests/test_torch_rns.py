@@ -406,3 +406,117 @@ def test_extend_kernel_tables(n, native):
     assert (r[3:].T == np.array([0, 2**15 - 1, 2**15, 2**16 - 1], dtype=np.uint64)).all()
     half = np.uint64(bc.m_tilde // 2)
     assert (r[0] < half).any() and (r[0] >= half).any()
+
+
+def _mulhi64(x, m):
+    """The high 64 bits of x * m for uint64 arrays (CUDA's __umul64hi), from
+    32-bit limbs."""
+    s = np.uint64(32)
+    xl, xh, ml, mh = x & _M32, x >> s, m & _M32, m >> s
+    ll, lh, hl, hh = xl * ml, xl * mh, xh * ml, xh * mh
+    mid = (ll >> s) + (lh & _M32) + (hl & _M32)
+    return hh + (lh >> s) + (hl >> s) + (mid >> s)
+
+
+def _emulate_tensor(words, L, a_q, a_b, b_q, b_b, square=False):
+    """csrc/behz_tensor.cu's indexing and arithmetic on uint64 arrays: each
+    output batch entry found in the operands through tensor_plan's merged
+    axes and strides, then per prime row uint64 sums of exact products,
+    reduced once by Barrett on the packed words (tensor_words) in 32-bit
+    words, and folded."""
+    K, R = L + 2, 2 * L + 2
+    w = words.astype(np.uint64)
+    primes, mus = w[:R], w[R::2] | (w[R + 1::2] << np.uint64(32))
+    assert len(w) == 3 * R
+    k1, k2, n = a_q.shape[-3], b_q.shape[-3], a_q.shape[-1]
+    bshape, sizes, sa, sb = behz_kernel.tensor_plan(a_q.shape[:-3], b_q.shape[:-3])
+    kout, B = k1 + k2 - 1, int(np.prod(bshape))
+    a = [x.reshape(-1, k1, x.shape[-2], n) for x in (a_q, a_b)]
+    b = [x.reshape(-1, k2, x.shape[-2], n) for x in (b_q, b_b)]
+    out = [np.zeros((B, kout, L, n), np.uint64), np.zeros((B, kout, K, n), np.uint64)]
+    for bi in range(B):
+        left, ea, eb = bi, 0, 0
+        for size, xa, xb in zip(sizes, sa, sb):
+            i, left = left % size, left // size
+            ea, eb = ea + i * xa, eb + i * xb
+        for row in range(R):
+            base, rr = (0, row) if row < L else (1, row - L)
+            x = a[base][ea, :, rr]
+            y = x if square else b[base][eb, :, rr]
+            p, m = primes[row], mus[row]
+            for r in range(kout):
+                acc = np.zeros(n, np.uint64)
+                for i in range(max(0, r - k2 + 1), min(k1, r + 1)):
+                    acc += x[i] * y[r - i]
+                out[base][bi, r, rr] = _fold((acc - _mulhi64(acc, m) * p) & _M32, p)
+    return (out[0].reshape(bshape + (kout, L, n)), out[1].reshape(bshape + (kout, K, n)))
+
+
+@pytest.mark.parametrize("L", [4, 8])
+@pytest.mark.parametrize("k1,k2", [(2, 2), (3, 2), (2, 3), (5, 4)])
+def test_tensor_kernel_arithmetic(L, k1, k2):
+    """The BEHZ tensor kernel's arithmetic and indexing, emulated on its
+    packed table, equal the torch loop (rns.tensor_product) on both bases:
+    operands of batch [3, 1, 2] and [4, 1] broadcast to [3, 4, 2] (three
+    unmerged axes, one operand of lower rank), one batch entry of each
+    operand and one coefficient column all at p - 1; and the square of the
+    first operand, read once."""
+    par = BfvParams.create(n={4: 4096, 8: 8192}[L], t=T)
+    bc = rns.get_behz(par)
+    assert bc.L == L
+    behz_kernel.check_limits(L, bc.K, tuple(par.q_primes) + par.bsk_primes, min(k1, k2))
+    words = behz_kernel.tensor_words(bc)
+    tool = rns.RnsTool(par, "cpu")
+    rng = np.random.default_rng(100 * L + 10 * k1 + k2)
+    cols = 32
+
+    def operand(batch, k):
+        xs = []
+        for primes in (par.q_primes, par.bsk_primes):
+            p = np.asarray(primes, dtype=np.uint64).reshape(-1, 1)
+            x = rng.integers(0, 1 << 62, size=batch + (k, len(primes), cols), dtype=np.uint64) % p
+            x.reshape((-1,) + x.shape[-3:])[0] = p - np.uint64(1)
+            x[..., 3] = (p - np.uint64(1))[:, 0]
+            xs.append(x)
+        return xs
+
+    a, b = operand((3, 1, 2), k1), operand((4, 1), k2)
+    t = [torch.from_numpy(x.astype(np.int64)) for x in a + b]
+    for got, want in ((_emulate_tensor(words, L, *a, *b),
+                       rns.tensor_product(*t, tool)),
+                      (_emulate_tensor(words, L, *a, *a, square=True),
+                       rns.tensor_product(t[0], t[1], t[0], t[1], tool))):
+        for g, w in zip(got, want):
+            assert g.shape == tuple(w.shape)
+            assert np.array_equal(g.astype(np.int64), w.numpy())
+
+
+def test_tensor_kernel_limits_and_plan():
+    """check_limits refuses a base the BEHZ kernels cannot take and sizes
+    whose tensor sums could pass 2^64: at most 16 products of residues below
+    2^30 fit in 64 bits, 17 of the largest do not.  tensor_words holds each
+    prime beside floor(2^64 / p); tensor_plan merges the resize's broadcast
+    batch axes as the kernel reads them."""
+    par = BfvParams.create(n=8192, t=T)
+    primes = tuple(par.q_primes) + par.bsk_primes
+    behz_kernel.check_limits(8, 10, primes, 16)
+    top = (1 << 30) - 35
+    assert 16 * (top - 1) ** 2 < 1 << 64 <= 17 * (top - 1) ** 2
+    behz_kernel.check_limits(8, 10, primes + (top,), 16)
+    with pytest.raises(ValueError, match="overflow"):
+        behz_kernel.check_limits(8, 10, primes + (top,), 17)
+    with pytest.raises(ValueError, match="2\\^30"):
+        behz_kernel.check_limits(8, 10, primes + (1 << 30,), 1)
+    with pytest.raises(ValueError, match="L in"):
+        behz_kernel.check_limits(8, 11, primes, 2)
+    words = behz_kernel.tensor_words(rns.get_behz(par)).astype(object)
+    R = len(primes)
+    assert words[:R].tolist() == list(primes)
+    assert [lo | hi << 32 for lo, hi in words[R:].reshape(-1, 2)] == [(1 << 64) // p
+                                                                       for p in primes]
+    plan = behz_kernel.tensor_plan
+    assert plan((1, 17, 1), (17, 17, 3)) == ((17, 17, 3), [3, 17, 17], [0, 1, 0], [1, 3, 51])
+    assert plan((17, 17, 3), (17, 1, 1)) == ((17, 17, 3), [51, 17], [1, 51], [0, 1])
+    assert plan((4, 17, 3), (4, 17, 3)) == ((4, 17, 3), [204], [1], [1])
+    assert plan((), (2,)) == ((2,), [2], [0], [1])
+    assert plan((), ()) == ((), [], [], [])
